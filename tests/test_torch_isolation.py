@@ -1,0 +1,39 @@
+"""The port imports neither JAX nor the JAX package.
+
+A fresh interpreter imports every module of ``real_esrgan_tpu_torch`` and
+``chip_smoke`` (and so everything they import), then lists the forbidden
+modules it holds.  ``real_esrgan_tpu_torch`` itself starts with the string
+``real_esrgan_tpu``, so names are matched exactly or with a ``.`` suffix.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PROBE = """
+import importlib, json, pkgutil, sys
+import real_esrgan_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(real_esrgan_tpu_torch.__path__,
+                                               "real_esrgan_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+forbidden = ("jax", "jaxlib", "flax", "optax", "orbax", "real_esrgan_tpu")
+held = sorted(m for m in sys.modules
+              if any(m == f or m.startswith(f + ".") for f in forbidden))
+print(json.dumps({"imported": names, "forbidden": held}))
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    result = json.loads(run.stdout.strip().splitlines()[-1])
+    assert result["forbidden"] == []
+    for module in ("ops.fused_rdb", "ops._build", "models.rrdbnet", "models.convert",
+                   "train.checkpoint", "utils.imgio", "parallel.tiling", "serve", "inference"):
+        assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

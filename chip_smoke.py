@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repository root, no arguments
 
 1. prints the card's name and power limit, as nvidia-smi gives them;
-2. builds the CUDA kernel of the port from ``real_esrgan_tpu_torch/csrc``
-   with nvcc, printing build seconds, registers, spills and shared memory;
+2. builds the CUDA kernels of the port from ``real_esrgan_tpu_torch/csrc``
+   with nvcc (one process a source, all at once), printing each source's
+   build seconds, registers, spills and shared memory;
 3. drives the x4 serving path: ``SRPipeline`` with
    ``assets/inenv10_esrnet_ema.npz`` answers requests in bfloat16 and in
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
@@ -16,10 +17,24 @@
    JAX golden output, the bf16 crop's PSNR against it, and the tiled image's
    interior seam error against a whole-image forward; profiles one warm
    forward of the test image (device busy time, idle share, time by kernel);
-5. holds the kernel against its plain PyTorch version on the card, with the
-   trained weights of several RDBs, at every shape the main path gave it;
-6. times each kernel against its plain version and its bound, and prints one
-   JSON line ``{"kernels": [...]}``; the last line is
+5. drives the conv/matmul experiment tool (``tools/conv_exp.py``: default
+   run, ``--mm``, ``--gate``, and the ``mm_grid`` probe) on the card, with the
+   launch counts of ``conv3x3``, ``mm_grid`` and ``mm_resident`` set to 0
+   just before and read just after, and holds those three kernels against
+   their plain versions at every shape that run gave them and two smaller
+   ones;
+6. drives the evaluation path: ``real_esrgan_tpu_torch.test`` (float32 and
+   ``--bfloat16``) and ``scripts.eval_pair`` on three crops of the test
+   image, recording the RDB kernel's input shapes here too, and NIQE of
+   ``tests/data/tree_sr.png`` on the card against the committed JAX score
+   and against the port's own CPU score, with TF32 allowed, so a filter that
+   fell into TF32 would fail here;
+7. holds the RDB kernel against its plain PyTorch version on the card, with
+   the trained weights of several RDBs, at every shape the serving and the
+   evaluation path gave it in each dtype;
+8. times each kernel against its plain version, its bound and, where one
+   PyTorch call computes the same function, that call, and prints one JSON
+   line ``{"kernels": [...]}``; the last line is
    ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -35,22 +50,34 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from real_esrgan_tpu_torch import test as test_cli
+from real_esrgan_tpu_torch.metrics.niqe import NIQE, niqe_features
 from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops import _build
+from real_esrgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, conv3x3_smem_bytes
 from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb_plain
+from real_esrgan_tpu_torch.ops.mm_probe import (
+    mm_grid, mm_grid_plain, mm_resident, mm_resident_plain, mm_resident_smem_bytes,
+)
+from real_esrgan_tpu_torch.ops.resize import matlab_resize
+from real_esrgan_tpu_torch.scripts import eval_pair
 from real_esrgan_tpu_torch.serve import SRPipeline
+from real_esrgan_tpu_torch.tools import conv_exp
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
-from real_esrgan_tpu_torch.utils.imgio import read_png
+from real_esrgan_tpu_torch.utils.imgio import load_image_rgb, read_png, write_png
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz")
 TREE = os.path.join(ROOT, "tests", "data", "tree_lr.png")
 GOLDEN = os.path.join(ROOT, "tests", "data", "jax_sr_tree_crop67x93_f32.npy")
+TREE_SR = os.path.join(ROOT, "tests", "data", "tree_sr.png")
+NIQE_GOLDEN = os.path.join(ROOT, "tests", "data", "jax_niqe_tree_sr.json")
 CROP = (slice(64, 131), slice(128, 221))  # the golden file's input crop
 
 RDBS_PER_FORWARD = 69  # 23 RRDBs x 3 RDBs
@@ -71,6 +98,13 @@ RDB_TILE = {torch.float32: 8, torch.bfloat16: 16}
 # 8-bit levels: bf16 rounding gives a max near 5 and a mean near 0.12; a tile
 # computed wrong gives far more
 SEAM_LIMIT = {"max": 16.0, "mean": 0.5}
+KERNEL_SOURCES = ("fused_rdb", "conv3x3", "mm_probe")
+CONV_SHAPE = (8, 256, 256, 64, 192, 32)  # the tool's default: B, H, W, Cin, Cout, tile
+MM_REPS = 32
+BF16_TOLERANCE = TOLERANCE[torch.bfloat16]
+# crops of the test image the evaluation path scores: (top, left, height, width)
+EVAL_CROPS = {"a_64x64.png": (0, 0, 64, 64), "b_96x128.png": (100, 200, 96, 128),
+              "c_50x70.png": (30, 400, 50, 70)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -98,32 +132,40 @@ def rdb_smem_bytes(dtype: torch.dtype) -> int:
 
 
 def build_kernels() -> None:
-    """Builds the kernel source anew, so the build time and the ptxas lines
-    printed are this run's."""
-    name = "fused_rdb"
-    _build.library_path(name).unlink(missing_ok=True)
-    _build.build(name)
-    log = _build.BUILD_LOG[name]
-    emit(build={name: {"nvcc_seconds": round(log["seconds"], 3),
-                       "ptxas": [line.strip() for line in log["log"].splitlines()
-                                 if re.search(r"registers|spill|entry function", line)]}})
+    """Builds every kernel source anew, all at once, so the build times and
+    the ptxas lines printed are this run's."""
+    for name in KERNEL_SOURCES:
+        _build.library_path(name).unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    _build.build_all(KERNEL_SOURCES)
+    wall = time.perf_counter() - t0
+    for name in KERNEL_SOURCES:
+        log = _build.BUILD_LOG[name]
+        emit(build={name: {"nvcc_seconds": round(log["seconds"], 3),
+                           "ptxas": [line.strip() for line in log["log"].splitlines()
+                                     if re.search(r"registers|spill|entry function", line)]}})
+    emit(build_wall_seconds=round(wall, 3))
     emit(fused_rdb_blocks={DTYPE_NAME[d]: {"tile": RDB_TILE[d], "smem_bytes": rdb_smem_bytes(d)}
                            for d in TOLERANCE})
+    emit(dynamic_smem_bytes={
+        "conv3x3[64->192, 96 channels a block]": conv3x3_smem_bytes(64, 3),
+        "mm_resident[k=192, 96 columns a block]": mm_resident_smem_bytes(192, 3),
+        "mm_resident[k=576, 96 columns a block]": mm_resident_smem_bytes(576, 3)})
 
 
-def record_rdb_shapes(pipe: SRPipeline, shapes: set) -> list:
-    """Adds the NHWC shape of every input an RDB of ``pipe`` gets to
-    ``shapes``; returns the hooks, to remove when done."""
-    def hook(_module, args):
-        b, c, h, w = args[0].shape
-        shapes.add((b, h, w, c))
-    return [m.register_forward_pre_hook(hook) for m in pipe.model.modules()
-            if isinstance(m, ResidualDenseBlock)]
+def record_rdb_shapes(shapes: dict):
+    """Adds the NHWC shape of every input any RDB in the process gets to
+    ``shapes[dtype]``, whoever built the model; returns the hook's handle."""
+    def hook(module, args):
+        if isinstance(module, ResidualDenseBlock):
+            b, c, h, w = args[0].shape
+            shapes[args[0].dtype].add((b, h, w, c))
+    return torch.nn.modules.module.register_module_forward_pre_hook(hook)
 
 
 def check_kernels(state_dict, main_shapes: dict) -> None:
     """K1 against rdb_plain on the card, trained weights, N(0, 0.5^2) inputs,
-    at every shape the main path gave it in each dtype and a ragged batch."""
+    at every shape the main paths gave it in each dtype and a ragged batch."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype, (atol, rtol) in TOLERANCE.items():
         for name in CHECK_RDBS:
@@ -238,6 +280,21 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(kernel, plain, reps: int):
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
+    plain_a, kernel_a = time_ms(plain, reps), time_ms(kernel, reps)
+    kernel_b, plain_b = time_ms(kernel, reps), time_ms(plain, reps)
+    return (kernel_a + kernel_b) / 2, (plain_a + plain_b) / 2
+
+
+def graph_ms(fn, launches: int) -> float:
+    """Time of one call of ``fn`` inside a CUDA graph of ``launches`` calls:
+    the device's time for the launch alone, without the host's gaps between
+    launches, so it reads a kernel that is shorter than its launch through
+    the host."""
+    return conv_exp.time_in_graph(fn, launches, torch.device("cuda")) * 1e3
+
+
 def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
     """fused_rdb at the tree image's trunk shape (1, 256, 512, 64): its time,
     its plain version's, both in turns (plain, kernel, kernel, plain), and its
@@ -251,22 +308,229 @@ def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
     check(bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()),
           f"fused_rdb {DTYPE_NAME[dtype]} disagrees with rdb_plain at {shape}")
     err = (out - ref).abs().max().item()
-    plain_a = time_ms(lambda: rdb_plain(x, packed), 10)
-    kernel_a = time_ms(lambda: fused_rdb(x, packed), 10)
-    kernel_b = time_ms(lambda: fused_rdb(x, packed), 10)
-    plain_b = time_ms(lambda: rdb_plain(x, packed), 10)
+    ms, plain_ms = in_turns(lambda: fused_rdb(x, packed), lambda: rdb_plain(x, packed), 10)
     pixels = shape[0] * shape[1] * shape[2]
     flops = RDB_FLOP_PER_PIXEL * pixels
     moved = (2 * pixels * 64 + RDB_WEIGHTS) * x.element_size() + 5 * 64 * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, moved / PEAK_BYTES * 1e3
-    ms = (kernel_a + kernel_b) / 2
     return {"name": f"fused_rdb[{DTYPE_NAME[dtype]}]", "route": "cuda",
             "source": "real_esrgan_tpu_torch/csrc/fused_rdb.cu",
             "replaces": "real_esrgan_tpu/ops/pallas_rdb.py:188",
-            "launches": launches, "max_abs_err": err, "ms": ms, "kernel_ms": ms,
-            "plain_ms": (plain_a + plain_b) / 2, "bound_ms": max(t_ops, t_bytes),
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "shape": list(shape), "tflops": flops / ms / 1e9}
+
+
+def within(out: torch.Tensor, ref: torch.Tensor, tolerance=BF16_TOLERANCE):
+    """(all within atol + rtol |ref|, max abs difference), after a synchronize."""
+    torch.cuda.synchronize()
+    atol, rtol = tolerance
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    ok = bool(torch.isfinite(out).all()) and bool((diff <= atol + rtol * ref.abs()).all())
+    return ok, diff.max().item()
+
+
+def conv_operands(shape, cout, seed=2):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand(shape, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(3, 3, shape[-1], cout, generator=gen, device="cuda") * 0.05
+    return x, w
+
+
+def check_tool_kernels() -> None:
+    """K2-K4 against their plain versions on the card, at every shape the
+    tool's run gives them (its default conv, the five of ``--mm``) and
+    smaller ones, which between them take every width the kernels are built
+    for: atol/rtol 2e-2 for the products, equality for the conv's copy
+    modes, the shape alone for ``dots``."""
+    atol, rtol = BF16_TOLERANCE
+    b, h, w_, cin, cout, tile = CONV_SHAPE
+    for shape, n_out, rows in (((b, h, w_, cin), cout, tile), ((2, 64, 48, 32), 96, 16)):
+        x, w = conv_operands(shape, n_out)
+        ok, err = within(conv3x3(x, w, tile=rows), conv3x3_plain(x, w))
+        exact = {mode: bool(torch.equal(conv3x3(x, w, tile=rows, mode=mode),
+                                        conv3x3_plain(x, w, mode))) for mode in ("patch", "dma")}
+        dots = conv3x3(x, w, tile=rows, mode="dots")
+        torch.cuda.synchronize()
+        ok = ok and all(exact.values()) and tuple(dots.shape) == (*shape[:3], n_out)
+        emit(kernel_check={"kernel": "conv3x3", "shape": [*shape, n_out], "tile": rows,
+                           "max_abs_diff": err, "atol": atol, "rtol": rtol,
+                           "copy_modes_equal": exact, "ok": ok})
+        check(ok, f"conv3x3 disagrees with conv3x3_plain at {shape} -> {n_out}")
+    for m, k, n in (*conv_exp.MM_SHAPES, (256, 96, 160), (128, 64, 64)):
+        a, bm = conv_exp.mm_operands(m, k, n, 0.05, torch.device("cuda"), seed=3)
+        for name, out, ref in (("mm_grid", mm_grid(a, bm), mm_grid_plain(a, bm)),
+                               ("mm_resident", mm_resident(a, bm, MM_REPS),
+                                mm_resident_plain(a, bm, MM_REPS))):
+            ok, err = within(out, ref)
+            emit(kernel_check={"kernel": name, "shape": [m, k, n], "max_abs_diff": err,
+                               "atol": atol, "rtol": rtol, "ok": ok})
+            check(ok, f"{name} disagrees with its plain version at ({m}, {k}) @ ({k}, {n})")
+
+
+def drive_conv_exp() -> dict:
+    """The experiment tool in process on the card: default run, ``--mm``,
+    ``--gate``, and the ``mm_grid`` probe, which the tool keeps callable.
+    Returns the launch counts of the run and the gate's verdict."""
+    wrappers = {"conv3x3": conv3x3, "mm_grid": mm_grid, "mm_resident": mm_resident}
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    conv_exp.main([])
+    conv_exp.main(["--mm"])
+    verdict = conv_exp.main(["--gate"])
+    for m, k, n in conv_exp.GATE_SHAPES:  # 200 launches: one alone is shorter than its launch
+        conv_exp.bench_mm_grid(m, k, n, 200, torch.device("cuda"))
+    launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
+    emit(conv_exp={"launches": launches, "gate": verdict})
+    for name, count in launches.items():
+        check(count > 0, f"the experiment tool never launched {name}")
+    check(set(verdict) >= {"value", "threshold", "library_tflops", "unparked", "device", "shapes"},
+          "gate verdict lacks a key")
+    return launches
+
+
+def drive_eval(tree: np.ndarray, rdb_shapes: dict) -> dict:
+    """The evaluation entry points on three crops of the test image at full
+    width and depth, with the RDB kernel's input shapes added to
+    ``rdb_shapes``.  Returns fused_rdb's launch counts by dtype."""
+    launches = {}
+    seen = {dtype: set() for dtype in rdb_shapes}
+    hook = record_rdb_shapes(seen)
+    with tempfile.TemporaryDirectory() as tmp:
+        lr_dir, hr_dir = os.path.join(tmp, "lr"), os.path.join(tmp, "hr")
+        os.makedirs(lr_dir), os.makedirs(hr_dir)
+        for name, (top, left, h, w) in EVAL_CROPS.items():
+            lr = np.ascontiguousarray(tree[top:top + h, left:left + w])
+            hr = matlab_resize(torch.from_numpy(lr).cuda(), 4.0).clamp(0, 1).cpu().numpy()
+            write_png(os.path.join(lr_dir, name), np.round(lr * 255.0).astype(np.uint8))
+            write_png(os.path.join(hr_dir, name), np.round(hr * 255.0).astype(np.uint8))
+
+        def run(label, dtype, call):
+            fused_rdb.launches = 0
+            t0 = time.perf_counter()
+            result = call()
+            seconds = time.perf_counter() - t0
+            launched = fused_rdb.launches
+            launches[dtype] = launches.get(dtype, 0) + launched
+            emit(eval={"entry": label, "dtype": DTYPE_NAME[dtype], "seconds": round(seconds, 3),
+                       "fused_rdb_launches": launched, "result": result})
+            check(launched == RDBS_PER_FORWARD * len(EVAL_CROPS),
+                  f"{label}: fused_rdb launched {launched} times for {len(EVAL_CROPS)} images")
+            return result
+
+        for flag, dtype in (([], torch.float32), (["--bfloat16"], torch.bfloat16)):
+            sr_dir = os.path.join(tmp, "sr_" + DTYPE_NAME[dtype])
+            args = test_cli.build_parser().parse_args(
+                ["--lr_dir", lr_dir, "--hr_dir", hr_dir, "--sr_dir", sr_dir,
+                 "--model_path", WEIGHTS, *flag])
+            avg = run("test", dtype, lambda: test_cli.main(args))
+            check(math.isfinite(avg) and 0.0 < avg <= 100.0, f"test: mean NIQE {avg}")
+            check(sorted(os.listdir(sr_dir)) == sorted(EVAL_CROPS), "test: files written")
+            for name, (_, _, h, w) in EVAL_CROPS.items():
+                check(read_png(os.path.join(sr_dir, name)).shape == (4 * h, 4 * w, 3),
+                      f"test: {name} is not 4x its input")
+        summary = run("eval_pair", torch.bfloat16, lambda: eval_pair.main(
+            ["--weights", WEIGHTS, "--lr-dir", lr_dir, "--hr-dir", hr_dir]))
+        check(summary["n"] == len(EVAL_CROPS) and math.isfinite(summary["psnr_mean"])
+              and summary["niqe_mean"] is not None and math.isfinite(summary["niqe_mean"]),
+              f"eval_pair summary {summary}")
+    hook.remove()
+    for dtype, shapes in seen.items():
+        emit(rdb_shapes={"path": "eval", "dtype": DTYPE_NAME[dtype],
+                         "shapes": [list(s) for s in sorted(shapes)]})
+        check(len(shapes) > 0, f"the evaluation path gave fused_rdb no {DTYPE_NAME[dtype]} input")
+        rdb_shapes[dtype] |= shapes
+    return launches
+
+
+def check_niqe() -> None:
+    """NIQE of tests/data/tree_sr.png on the card, with TF32 allowed for
+    float32 products and convolutions, against the committed JAX score (1e-2)
+    and the port's own CPU score of this run (1e-3); times the features on
+    the card and the float64 tail on the host."""
+    with open(NIQE_GOLDEN) as f:
+        golden = json.load(f)
+    image = load_image_rgb(TREE_SR)[None]
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        card = float(NIQE(crop_border=golden["crop_border"], device="cuda")(image)[0])
+        batch = torch.from_numpy(image).cuda()
+        features_ms = time_ms(lambda: niqe_features(batch, golden["crop_border"]), 5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    scorer = NIQE(crop_border=golden["crop_border"], device="cpu")
+    feats = niqe_features(torch.from_numpy(image), golden["crop_border"]).numpy()
+    t0 = time.perf_counter()
+    cpu = float(scorer.score_features(feats)[0])
+    tail_ms = (time.perf_counter() - t0) * 1e3
+    emit(niqe={"image": "tests/data/tree_sr.png", "card": card, "cpu": cpu,
+               "jax_golden": golden["score"], "card_minus_cpu": card - cpu,
+               "card_minus_golden": card - golden["score"], "tf32_allowed": True,
+               "features_ms_on_card": features_ms, "host_f64_tail_ms": tail_ms})
+    check(abs(card - golden["score"]) <= 1e-2, f"NIQE {card} on the card, JAX {golden['score']}")
+    check(abs(card - cpu) <= 1e-3, f"NIQE {card} on the card, {cpu} on the CPU")
+
+
+def bound(flops: float, moved: float) -> dict:
+    """The least time the card could take: operations over the bf16 peak
+    against bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, moved / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def conv_record(launches: int) -> dict:
+    """conv3x3 mode ``full`` at the tool's default shape."""
+    b, h, w_, cin, cout, tile = CONV_SHAPE
+    x, w = conv_operands((b, h, w_, cin), cout)
+    w = w.to(torch.bfloat16)
+    weight = conv_exp.library_conv_weight(w)
+    ok, err = within(conv3x3(x, w, tile=tile), conv3x3_plain(x, w))
+    check(ok, "conv3x3 disagrees with conv3x3_plain at the tool's shape")
+    ms, plain_ms = in_turns(lambda: conv3x3(x, w, tile=tile), lambda: conv3x3_plain(x, w), 20)
+    flops = 2 * 9 * cin * cout * b * h * w_
+    moved = 2 * (x.numel() + b * h * w_ * cout + w.numel())
+    return {"name": "conv3x3[bf16]", "route": "cuda",
+            "source": "real_esrgan_tpu_torch/csrc/conv3x3.cu",
+            "replaces": "tools/pallas_conv_exp.py:86", "launches": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, **bound(flops, moved),
+            "library_ms": time_ms(lambda: conv_exp.library_conv(x, weight), 20),
+            "shape": [b, h, w_, cin, cout], "mode": "full", "tile": tile,
+            "tflops": flops / ms / 1e9}
+
+
+def mm_record(kind: str, m: int, k: int, n: int, launches: int) -> dict:
+    """mm_grid or mm_resident at one of the gate's shapes.  One mm_grid
+    launch is shorter than its launch through the host, so ``ms``, over 200
+    launches between two events, reads the host's launch rate; ``device_ms``
+    is its time inside a CUDA graph of 50 launches."""
+    a, b = conv_exp.mm_operands(m, k, n, 0.05, torch.device("cuda"), seed=3)
+    if kind == "mm_grid":
+        reps, timed = 1, 200
+        kernel, plain = (lambda: mm_grid(a, b)), (lambda: mm_grid_plain(a, b))
+        library, line = (lambda: torch.matmul(a, b)), 119
+    else:
+        reps, timed = MM_REPS, 100
+        kernel, plain = (lambda: mm_resident(a, b, reps)), (lambda: mm_resident_plain(a, b, reps))
+        line = 159
+
+        def library():
+            for _ in range(reps):
+                torch.matmul(a, b)
+    ok, err = within(kernel(), plain())
+    check(ok, f"{kind} disagrees with its plain version at ({m}, {k}) @ ({k}, {n})")
+    ms, plain_ms = in_turns(kernel, plain, timed)
+    flops = 2 * m * k * n * reps
+    on_device = {"device_ms": graph_ms(kernel, 50), "library_device_ms": graph_ms(library, 50)}
+    return {"name": f"{kind}[bf16,{m}x{k}x{n}]", "route": "cuda",
+            "source": "real_esrgan_tpu_torch/csrc/mm_probe.cu",
+            "replaces": f"tools/pallas_conv_exp.py:{line}", "launches": launches,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            **bound(flops, 2 * (m * k + k * n + m * n)), "library_ms": time_ms(library, timed),
+            "shape": [m, k, n], "reps": reps, "launches_timed": timed, **on_device,
+            "tflops": flops / ms / 1e9, "device_tflops": flops / on_device["device_ms"] / 1e9}
 
 
 def main() -> int:
@@ -286,18 +550,17 @@ def main() -> int:
     tree = read_png(TREE).astype(np.float32) / 255.0          # 256 x 512
     wide = np.ascontiguousarray(np.tile(tree, (2, 4, 1)))      # 512 x 2048: 4 tiles of 528/8/8
     golden = np.load(GOLDEN)
-    launches, outputs, main_shapes = {}, {}, {}
+    launches, outputs = {}, {}
+    main_shapes = {dtype: set() for dtype in TOLERANCE}
     for dtype in (torch.bfloat16, torch.float32):
         pipe = SRPipeline(WEIGHTS, bfloat16=dtype == torch.bfloat16, device="cuda")
-        main_shapes[dtype] = set()
-        hooks = record_rdb_shapes(pipe, main_shapes[dtype])
+        hook = record_rdb_shapes(main_shapes)
         fused_rdb.launches = 0
         outputs[dtype] = serve(pipe, dtype, tree, wide)
         launches[dtype] = fused_rdb.launches
-        for h in hooks:
-            h.remove()
+        hook.remove()
         check(launches[dtype] > 0, f"main path ({DTYPE_NAME[dtype]}) never launched fused_rdb")
-        emit(rdb_shapes={"dtype": DTYPE_NAME[dtype],
+        emit(rdb_shapes={"path": "serve", "dtype": DTYPE_NAME[dtype],
                          "shapes": [list(s) for s in sorted(main_shapes[dtype])]})
         emit(profile={"dtype": DTYPE_NAME[dtype], "request": "tree forward",
                       **profile_forward(pipe, tree)})
@@ -312,6 +575,10 @@ def main() -> int:
         del pipe
         torch.cuda.empty_cache()
 
+    tool_launches = drive_conv_exp()
+    check_tool_kernels()
+    eval_launches = drive_eval(tree, main_shapes)
+    check_niqe()
     check_kernels(state_dict, main_shapes)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
@@ -322,7 +589,13 @@ def main() -> int:
     check(f32_err <= 1e-4, f"f32 crop differs from the JAX golden output by {f32_err}")
     check(bf16_psnr >= 40.0, f"bf16 crop PSNR {bf16_psnr:.2f} dB against the JAX golden output")
 
-    kernels = [kernel_record(state_dict, d, launches[d]) for d in (torch.bfloat16, torch.float32)]
+    emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d]}
+                             for d in launches})
+    kernels = [kernel_record(state_dict, d, launches[d] + eval_launches[d])
+               for d in (torch.bfloat16, torch.float32)]
+    kernels.append(conv_record(tool_launches["conv3x3"]))
+    kernels += [mm_record(kind, m, k, n, tool_launches[kind])
+                for kind in ("mm_grid", "mm_resident") for m, k, n in conv_exp.GATE_SHAPES]
     emit(seconds=round(time.perf_counter() - t_start, 1))
     emit(kernels=kernels)
     emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,9 @@
 Each source has a plain C interface and is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library under ``real_esrgan_tpu_torch/_build/``
 (listed in ``.gitignore``) on first use.  The library's name carries a hash of
-the source and the flags, so an edited source is rebuilt and never mixed up
-with an old build.  Nothing is built at import time.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and never mixed up with an old build.  Nothing is built at
+import time.
 """
 
 from __future__ import annotations
@@ -15,8 +16,9 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -42,8 +44,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
@@ -62,6 +66,12 @@ def build(name: str) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}")
     os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
+
+
+def build_all(names: Sequence[str]) -> None:
+    """Builds several sources at once, one nvcc process each."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(build, names))  # list() re-raises a failed build
 
 
 def load(name: str) -> ctypes.CDLL:

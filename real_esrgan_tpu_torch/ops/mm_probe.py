@@ -1,0 +1,149 @@
+"""Two bfloat16 matrix-product probes on the tensor cores: the ports of
+tools/pallas_conv_exp.py::bench_mosaic_mm and ::bench_mosaic_mm_vmem.
+
+* ``mm_grid(a, b)``: ``a @ b`` tiled over a grid of blocks, f32 accumulate,
+  bfloat16 out.  The TPU kernel's ``grid_m`` (rows a sequential grid step)
+  has no counterpart: the kernel tiles M and N over parallel blocks itself.
+* ``mm_resident(a, b, reps)``: each block loads its slice of ``a`` and ``b``
+  into shared memory once, runs the product ``reps`` times from there and
+  sums in f32: the tensor cores' rate with no device-memory read in the
+  loop.
+
+Both launch hand-written CUDA kernels (``csrc/mm_probe.cu``).  The plain
+versions are taken only for tensors on the CPU; a CUDA tensor launches the
+kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from real_esrgan_tpu_torch.ops import _build
+from real_esrgan_tpu_torch.ops.conv3x3 import SMEM_LIMIT
+from real_esrgan_tpu_torch.ops.resize import true_f32
+
+BLOCK_ROWS = 64  # rows of the output one block computes, as kBM in csrc/mm_probe.cu
+# column fragments a warp each kernel is built for, widest first: what the
+# experiment tool's shapes reach, and 1, which takes every other n
+GRID_FRAGMENTS = (5, 3, 1)
+RESIDENT_FRAGMENTS = (5, 4, 3, 1)
+
+
+def mm_resident_smem_bytes(k: int, nf: int) -> int:
+    """Shared memory of one mm_resident block, as csrc/mm_probe.cu lays it
+    out: 64 rows of a and 32 nf columns of b, 8 elements of padding a row."""
+    return 2 * (BLOCK_ROWS * (k + 8) + k * (32 * nf + 8))
+
+
+def _column_fragments(k: int, n: int, resident: bool) -> int:
+    """Column fragments of one warp: the widest slice of n the kernel is built
+    for (32 nf columns a block) that divides n and, for mm_resident, fits
+    shared memory."""
+    for nf in RESIDENT_FRAGMENTS if resident else GRID_FRAGMENTS:
+        if n % (32 * nf) == 0 and (not resident or mm_resident_smem_bytes(k, nf) <= SMEM_LIMIT):
+            return nf
+    raise ValueError(f"mm_resident: no slice of a ({k}, {n}) matrix fits a block's "
+                     f"{SMEM_LIMIT} bytes of shared memory beside {BLOCK_ROWS} rows of a")
+
+
+def _check(name: str, a: torch.Tensor, b: torch.Tensor, resident: bool) -> None:
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16:
+        raise TypeError(f"{name} takes bfloat16 matrices, not {a.dtype} and {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"{name} takes (m, k) and (k, n), got {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}")
+    if a.device != b.device:
+        raise ValueError(f"{name}: a on {a.device}, b on {b.device}")
+    m, k = a.shape
+    n = b.shape[1]
+    if m == 0 or m % BLOCK_ROWS or k == 0 or k % 16 or n == 0 or n % 32:
+        raise ValueError(f"{name} needs m % {BLOCK_ROWS} == 0, k % 16 == 0 and n % 32 == 0, "
+                         f"got ({m}, {k}) @ ({k}, {n})")
+    if not a.is_contiguous() or not b.is_contiguous():
+        raise ValueError(f"{name} needs contiguous row-major matrices")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(f"{name} needs a and b on a 16-byte boundary")
+    _column_fragments(k, n, resident)
+
+
+def mm_grid_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of ``mm_grid``: a true-float32 product of the
+    bfloat16 operands, rounded once."""
+    with true_f32():
+        return (a.float() @ b.float()).to(torch.bfloat16)
+
+
+def mm_resident_plain(a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tensor:
+    """Plain PyTorch version of ``mm_resident``: ``reps`` times the product,
+    which equals the f32 sum of ``reps`` equal products up to summation
+    order."""
+    with true_f32():
+        return (reps * (a.float() @ b.float())).to(torch.bfloat16)
+
+
+def _library() -> ctypes.CDLL:
+    lib = _build.load("mm_probe")
+    if lib.mm_grid_forward.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        lib.mm_grid_forward.argtypes = [vp, vp, vp, i, i, i, i, vp]
+        lib.mm_grid_forward.restype = i
+        lib.mm_resident_forward.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        lib.mm_resident_forward.restype = i
+    return lib
+
+
+def _launch(wrapper, a: torch.Tensor, b: torch.Tensor, call) -> torch.Tensor:
+    if a.device.type != "cuda":
+        raise ValueError(f"{wrapper.__name__} runs on cpu or cuda, not {a.device}")
+    out = torch.empty(a.shape[0], b.shape[1], dtype=torch.bfloat16, device=a.device)
+    with torch.cuda.device(a.device):
+        err = call(_library(), out, torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed with CUDA error {err}")
+    wrapper.launches += 1
+    return out
+
+
+def mm_grid(a: torch.Tensor, b: torch.Tensor, acc32: bool = True) -> torch.Tensor:
+    """``a @ b`` for bfloat16 (m, k) and (k, n), f32 accumulate, bfloat16
+    out; m a multiple of 64, k of 16, n of 32.
+
+    ``acc32=False`` asks for a bfloat16 accumulator, as the TPU probe can;
+    Hopper's bfloat16 tensor-core instructions accumulate in f32 only, so it
+    raises.  A CPU tensor goes through ``mm_grid_plain``; a CUDA tensor
+    through the kernel, which adds one to ``mm_grid.launches``.
+    """
+    if not acc32:
+        raise ValueError("mm_grid: acc32=False (a bfloat16 accumulator) does not exist on "
+                         "Hopper's bfloat16 tensor cores; they accumulate in float32")
+    _check("mm_grid", a, b, resident=False)
+    if a.device.type == "cpu":
+        return mm_grid_plain(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    nf = _column_fragments(k, n, resident=False)
+    return _launch(mm_grid, a, b, lambda lib, out, stream: lib.mm_grid_forward(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, nf, stream))
+
+
+def mm_resident(a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tensor:
+    """The f32 sum of ``reps`` products ``a @ b``, rounded to bfloat16, each
+    product computed from shared memory; shapes as for ``mm_grid``.
+
+    A CPU tensor goes through ``mm_resident_plain``; a CUDA tensor through
+    the kernel, which adds one to ``mm_resident.launches``.
+    """
+    if reps < 1:
+        raise ValueError(f"mm_resident needs reps >= 1, got {reps}")
+    _check("mm_resident", a, b, resident=True)
+    if a.device.type == "cpu":
+        return mm_resident_plain(a, b, reps)
+    (m, k), n = a.shape, b.shape[1]
+    nf = _column_fragments(k, n, resident=True)
+    return _launch(mm_resident, a, b, lambda lib, out, stream: lib.mm_resident_forward(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps, nf, stream))
+
+
+mm_grid.launches = 0
+mm_resident.launches = 0

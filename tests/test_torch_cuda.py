@@ -5,13 +5,19 @@ JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Bounds: f32 1e-4 (summation order only, TF32 off); bf16 atol/rtol 2e-2.
+Bounds: f32 1e-4 (summation order only, TF32 off); bf16 atol/rtol 2e-2 (one
+rounding to bf16 after an f32 sum taken in another order); the conv's copy
+modes are exact.
 """
 
 import pytest
 import torch
 
+from real_esrgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb_plain
+from real_esrgan_tpu_torch.ops.mm_probe import (
+    mm_grid, mm_grid_plain, mm_resident, mm_resident_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -62,3 +68,103 @@ def test_fused_rdb_rejects_what_the_kernel_does_not_take(cuda):
     shifted.copy_(packed[1])
     with pytest.raises(ValueError, match="16-byte boundary"):
         fused_rdb(x, [packed[0], shifted] + packed[2:])  # weight off a 16-byte boundary
+
+
+CONV_SHAPES = [((8, 256, 256, 64), 192, 32), ((2, 16, 32, 32), 96, 8), ((1, 64, 48, 64), 64, 16)]
+CONV_IDS = ["tool_default", "small", "three_col_tiles"]
+
+
+def _conv_operands(cuda, shape, cout):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.rand(shape, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(3, 3, shape[-1], cout, generator=g, device=cuda) * 0.05
+    return x, w
+
+
+@pytest.mark.parametrize("shape,cout,tile", CONV_SHAPES, ids=CONV_IDS)
+def test_conv3x3_full_matches_plain(cuda, shape, cout, tile):
+    x, w = _conv_operands(cuda, shape, cout)
+    before = conv3x3.launches
+    out = conv3x3(x, w, tile=tile)
+    torch.cuda.synchronize()
+    assert conv3x3.launches == before + 1
+    torch.testing.assert_close(out.float(), conv3x3_plain(x, w).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("mode", ["patch", "dma"])
+@pytest.mark.parametrize("shape,cout,tile", CONV_SHAPES, ids=CONV_IDS)
+def test_conv3x3_patch_and_dma_equal_plain(cuda, shape, cout, tile, mode):
+    x, w = _conv_operands(cuda, shape, cout)
+    out = conv3x3(x, w, tile=tile, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(out, conv3x3_plain(x, w, mode))
+
+
+def test_conv3x3_dots_has_the_output_shape(cuda):
+    x, w = _conv_operands(cuda, (2, 16, 32, 32), 96)
+    out = conv3x3(x, w, tile=8, mode="dots")  # values undefined: the window is not staged
+    torch.cuda.synchronize()
+    assert out.shape == (2, 16, 32, 96) and out.dtype == torch.bfloat16
+
+
+# between them these take every width the kernels are built for
+MM_SHAPES = [(8192, 192, 192), (8192, 576, 192), (128, 96, 160), (256, 512, 512), (128, 64, 64)]
+
+
+def _mm_operands(cuda, m, k, n):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    a = torch.randn(m, k, generator=g, device=cuda).to(torch.bfloat16)
+    b = (torch.randn(k, n, generator=g, device=cuda) * 0.05).to(torch.bfloat16)
+    return a, b
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+def test_mm_grid_matches_plain(cuda, m, k, n):
+    a, b = _mm_operands(cuda, m, k, n)
+    before = mm_grid.launches
+    out = mm_grid(a, b)
+    torch.cuda.synchronize()
+    assert mm_grid.launches == before + 1
+    torch.testing.assert_close(out.float(), mm_grid_plain(a, b).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("reps", [1, 32])
+@pytest.mark.parametrize("m,k,n", MM_SHAPES)
+def test_mm_resident_matches_plain(cuda, m, k, n, reps):
+    a, b = _mm_operands(cuda, m, k, n)
+    before = mm_resident.launches
+    out = mm_resident(a, b, reps=reps)
+    torch.cuda.synchronize()
+    assert mm_resident.launches == before + 1
+    torch.testing.assert_close(out.float(), mm_resident_plain(a, b, reps).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+def test_conv_and_mm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    x, w = _conv_operands(cuda, (1, 16, 32, 32), 96)
+    for bad_x, bad_w, tile, error in [
+            (x.float(), w, 8, TypeError), (x, w.half(), 8, TypeError),
+            (x, w, 12, ValueError), (x[:, :12], w, 8, ValueError),   # tile % 8, H % tile
+            (x[:, :, :24].contiguous(), w, 8, ValueError),           # W % 16
+            (x.transpose(1, 2), w, 8, ValueError),                   # not contiguous
+            (x, w[..., :48].contiguous(), 8, ValueError),            # Cout % 32
+            (x, w.cpu(), 8, ValueError)]:
+        with pytest.raises(error):
+            conv3x3(bad_x, bad_w, tile=tile)
+    with pytest.raises(ValueError, match="patch"):
+        conv3x3(x, torch.zeros(3, 3, 32, 128, device=cuda), tile=8, mode="patch")
+    a, b = _mm_operands(cuda, 128, 96, 160)
+    for fn in (mm_grid, mm_resident):
+        with pytest.raises(TypeError):
+            fn(a.float(), b.float())
+        with pytest.raises(ValueError):
+            fn(a[:100], b)                 # m % 64
+        with pytest.raises(ValueError):
+            fn(a.t().contiguous().t(), b)  # not row-major
+        with pytest.raises(ValueError):
+            fn(a, b[:, :150].contiguous())  # n % 32
+    with pytest.raises(ValueError, match="acc32"):
+        mm_grid(a, b, acc32=False)
+    with pytest.raises(ValueError, match="shared memory"):
+        mm_resident(torch.zeros(64, 4096, device=cuda, dtype=torch.bfloat16),
+                    torch.zeros(4096, 32, device=cuda, dtype=torch.bfloat16))

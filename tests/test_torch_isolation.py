@@ -35,5 +35,7 @@ def test_port_and_chip_smoke_import_no_jax():
     result = json.loads(run.stdout.strip().splitlines()[-1])
     assert result["forbidden"] == []
     for module in ("ops.fused_rdb", "ops._build", "models.rrdbnet", "models.convert",
-                   "train.checkpoint", "utils.imgio", "parallel.tiling", "serve", "inference"):
+                   "train.checkpoint", "utils.imgio", "parallel.tiling", "serve", "inference",
+                   "ops.resize", "ops.conv3x3", "ops.mm_probe", "utils.meters", "metrics.niqe",
+                   "test", "scripts.eval_pair", "tools.conv_exp"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

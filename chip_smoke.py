@@ -6,7 +6,10 @@
 1. prints the card's name and power limit, as nvidia-smi gives them;
 2. builds the CUDA kernels of the port from ``real_esrgan_tpu_torch/csrc``
    with nvcc (one process a source, all at once), printing each source's
-   build seconds, registers, spills and shared memory;
+   build seconds, registers, spills and shared memory, the tensor-core and
+   shared-memory instructions of each kernel as ``cuobjdump -sass`` shows
+   them, and the RDB kernels' block plan (``rdb_plan``), which the wrapper
+   holds the built kernels to;
 3. drives the x4 serving path: ``SRPipeline`` with
    ``assets/inenv10_esrnet_ema.npz`` answers requests in bfloat16 and in
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
@@ -31,10 +34,12 @@
    fell into TF32 would fail here;
 7. holds the RDB kernel against its plain PyTorch version on the card, with
    the trained weights of several RDBs, at every shape the serving and the
-   evaluation path gave it in each dtype;
+   evaluation path gave it in each dtype, a ragged batch, a block smaller
+   than a tile and a batch of three ragged images;
 8. times each kernel against its plain version, its bound and, where one
-   PyTorch call computes the same function, that call, and prints one JSON
-   line ``{"kernels": [...]}``; the last line is
+   PyTorch call computes the same function, that call (K1 and its plain
+   version also inside a CUDA graph, without the host's gaps), and prints
+   one JSON line ``{"kernels": [...]}``; the last line is
    ``{"ok": true, "device": {...}}``.
 
 Every check raises on failure, so the script exits non-zero and prints no
@@ -61,7 +66,9 @@ from real_esrgan_tpu_torch.metrics.niqe import NIQE, niqe_features
 from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops import _build
 from real_esrgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, conv3x3_smem_bytes
-from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb_plain
+from real_esrgan_tpu_torch.ops.fused_rdb import (
+    built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan,
+)
 from real_esrgan_tpu_torch.ops.mm_probe import (
     mm_grid, mm_grid_plain, mm_resident, mm_resident_plain, mm_resident_smem_bytes,
 )
@@ -84,16 +91,18 @@ RDBS_PER_FORWARD = 69  # 23 RRDBs x 3 RDBs
 # 2 * 9 * (64*32 + 96*32 + 128*32 + 160*32 + 192*64) FLOP per pixel
 RDB_FLOP_PER_PIXEL = 479_232
 RDB_WEIGHTS = RDB_FLOP_PER_PIXEL // 2
-# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate, f32 CUDA-core
-# rate, HBM3 rate.  The kernel runs on CUDA cores, so its bf16 bound is
-# against a peak it cannot reach yet.
+# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate (K1 bf16 runs on
+# the tensor cores), f32 CUDA-core rate (K1 f32 runs on CUDA cores), HBM3 rate.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 CHECK_RDBS = ("trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3")
 TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}  # atol, rtol
 DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# output tile side T of one block, as Traits<T>::kTile sets it in csrc/fused_rdb.cu
-RDB_TILE = {torch.float32: 8, torch.bfloat16: 16}
+# K1's kernels in csrc/fused_rdb.cu, as the profiler names them
+RDB_KERNEL_NAMES = ("rdb_bf16_kernel", "rdb_f32_kernel")
+# beyond the main paths' shapes: a ragged batch, a block smaller than a tile
+# (fragment tail and clamp), three ragged images (masks at T=16, batch index)
+K1_EXTRA_SHAPES = {(2, 67, 93, 64), (1, 5, 3, 64), (3, 17, 40, 64)}
 # interior seam error of the bf16 tiled output against a whole-image forward,
 # 8-bit levels: bf16 rounding gives a max near 5 and a mean near 0.12; a tile
 # computed wrong gives far more
@@ -123,12 +132,25 @@ def rdb_pack(state_dict, name: str, dtype: torch.dtype):
     return [t.cuda() for t in packed]
 
 
-def rdb_smem_bytes(dtype: torch.dtype) -> int:
-    """Shared memory of one fused_rdb block: the x tile with its 5-pixel halo
-    (64 channels) and o1..o4 at (T+8)^2..(T+2)^2 (32 channels each)."""
-    t = RDB_TILE[dtype]
-    elems = sum((t + 2 * (5 - k)) ** 2 * (64 if k == 0 else 32) for k in range(5))
-    return elems * torch.tensor([], dtype=dtype).element_size()
+def sass_counts(name: str) -> dict:
+    """Tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS), barrier and
+    local-memory instructions of each kernel in the built library, as
+    ``cuobjdump -sass`` lists them; empty where the toolkit lacks cuobjdump."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(_build.library_path(name))], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            kernel = next((k for k in RDB_KERNEL_NAMES if k in found.group(1)), found.group(1))
+            counts[kernel] = dict.fromkeys(("HMMA", "LDSM", "LDGSTS", "BAR", "LDL", "STL"), 0)
+        elif kernel is not None:
+            for op in counts[kernel]:
+                counts[kernel][op] += bool(re.search(rf"\b{op}\b", line))
+    return counts
 
 
 def build_kernels() -> None:
@@ -145,7 +167,8 @@ def build_kernels() -> None:
                            "ptxas": [line.strip() for line in log["log"].splitlines()
                                      if re.search(r"registers|spill|entry function", line)]}})
     emit(build_wall_seconds=round(wall, 3))
-    emit(fused_rdb_blocks={DTYPE_NAME[d]: {"tile": RDB_TILE[d], "smem_bytes": rdb_smem_bytes(d)}
+    emit(sass={"fused_rdb": sass_counts("fused_rdb")})
+    emit(fused_rdb_blocks={DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)}
                            for d in TOLERANCE})
     emit(dynamic_smem_bytes={
         "conv3x3[64->192, 96 channels a block]": conv3x3_smem_bytes(64, 3),
@@ -165,12 +188,12 @@ def record_rdb_shapes(shapes: dict):
 
 def check_kernels(state_dict, main_shapes: dict) -> None:
     """K1 against rdb_plain on the card, trained weights, N(0, 0.5^2) inputs,
-    at every shape the main paths gave it in each dtype and a ragged batch."""
+    at every shape the main paths gave it in each dtype and K1_EXTRA_SHAPES."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     for dtype, (atol, rtol) in TOLERANCE.items():
         for name in CHECK_RDBS:
             packed = rdb_pack(state_dict, name, dtype)
-            for shape in sorted(main_shapes[dtype] | {(2, 67, 93, 64)}):
+            for shape in sorted(main_shapes[dtype] | K1_EXTRA_SHAPES):
                 x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
                 out = fused_rdb(x, packed).float()
                 ref = rdb_plain(x, packed).float()
@@ -261,7 +284,8 @@ def profile_forward(pipe: SRPipeline, image: np.ndarray) -> dict:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    rdb_ms = sum(ms for name, (ms, _) in by_name.items() if "rdb_kernel" in name)
+    rdb_ms = sum(ms for name, (ms, _) in by_name.items()
+                 if any(kernel in name for kernel in RDB_KERNEL_NAMES))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
             "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "fused_rdb_ms": rdb_ms,
             "fused_rdb_share_of_busy": rdb_ms / (busy_us / 1e3),
@@ -297,8 +321,11 @@ def graph_ms(fn, launches: int) -> float:
 
 def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
     """fused_rdb at the tree image's trunk shape (1, 256, 512, 64): its time,
-    its plain version's, both in turns (plain, kernel, kernel, plain), and its
-    bound, the larger of FLOPs over the peak rate and bytes over HBM's rate."""
+    its plain version's, both in turns (plain, kernel, kernel, plain), both
+    again inside a CUDA graph of 10 launches (``device_ms``,
+    ``plain_device_ms``: the plain version's 15 cuDNN convolutions and
+    elementwise passes without the host's gaps between them), and its bound,
+    the larger of FLOPs over the peak rate and bytes over HBM's rate."""
     shape = (1, 256, 512, 64)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
@@ -309,6 +336,8 @@ def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
           f"fused_rdb {DTYPE_NAME[dtype]} disagrees with rdb_plain at {shape}")
     err = (out - ref).abs().max().item()
     ms, plain_ms = in_turns(lambda: fused_rdb(x, packed), lambda: rdb_plain(x, packed), 10)
+    plain_device_ms = graph_ms(lambda: rdb_plain(x, packed), 10)
+    device_ms = graph_ms(lambda: fused_rdb(x, packed), 10)
     pixels = shape[0] * shape[1] * shape[2]
     flops = RDB_FLOP_PER_PIXEL * pixels
     moved = (2 * pixels * 64 + RDB_WEIGHTS) * x.element_size() + 5 * 64 * 4
@@ -319,7 +348,9 @@ def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "shape": list(shape), "tflops": flops / ms / 1e9}
+            "library_ms": None, "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "shape": list(shape), "tflops": flops / ms / 1e9,
+            "device_tflops": flops / device_ms / 1e9}
 
 
 def within(out: torch.Tensor, ref: torch.Tensor, tolerance=BF16_TOLERANCE):
@@ -562,8 +593,10 @@ def main() -> int:
         check(launches[dtype] > 0, f"main path ({DTYPE_NAME[dtype]}) never launched fused_rdb")
         emit(rdb_shapes={"path": "serve", "dtype": DTYPE_NAME[dtype],
                          "shapes": [list(s) for s in sorted(main_shapes[dtype])]})
-        emit(profile={"dtype": DTYPE_NAME[dtype], "request": "tree forward",
-                      **profile_forward(pipe, tree)})
+        profile = profile_forward(pipe, tree)
+        emit(profile={"dtype": DTYPE_NAME[dtype], "request": "tree forward", **profile})
+        check("device_busy_ms" not in profile or profile["fused_rdb_ms"] > 0,
+              f"the {DTYPE_NAME[dtype]} profile names no kernel of {RDB_KERNEL_NAMES}")
         if dtype == torch.bfloat16:
             seam = seam_error(pipe, wide, outputs[dtype]["wide_tiled"])
             emit(seam={"dtype": "bf16", "geometry": "528/8/8", "in": list(wide.shape[:2]),

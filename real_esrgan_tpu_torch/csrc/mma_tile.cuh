@@ -1,6 +1,6 @@
-// Warp-level bf16 tensor-core tile product shared by conv3x3.cu and
-// mm_probe.cu: mma.sync m16n8k16 (bf16 operands, f32 accumulators in
-// registers) fed by ldmatrix from shared memory.
+// Warp-level bf16 tensor-core tile product shared by conv3x3.cu,
+// mm_probe.cu and fused_rdb.cu: mma.sync m16n8k16 (bf16 operands, f32
+// accumulators in registers) fed by ldmatrix from shared memory.
 //
 // One warp owns a tile of 32 rows x (16 * NF) columns of the block's output:
 // two row fragments by NF column fragments of 16 x 16.  For every k step of
@@ -43,20 +43,32 @@ __device__ __forceinline__ uint32_t lane_row(const bf16* tile, int ld) {
   return shared_address(tile + (lane & 15) * ld + (lane >> 4) * 8);
 }
 
-__device__ __forceinline__ void load_a(FragA& f, const bf16* tile, int ld) {
+// ldmatrix.x4 from this lane's own row address (a shared-memory address), for
+// operands whose rows are not evenly spaced: lanes 0..15 give rows 0..15 of
+// columns 0..7, lanes 16..31 the same rows of columns 8..15.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t row_address) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(f.r[0]), "=r"(f.r[1]), "=r"(f.r[2]), "=r"(f.r[3])
-               : "r"(lane_row(tile, ld))
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(row_address)
                : "memory");
+}
+
+// The same with the 8 x 8 blocks transposed: rows are k, columns n.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t row_address) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(row_address)
+               : "memory");
+}
+
+__device__ __forceinline__ void load_a(FragA& f, const bf16* tile, int ld) {
+  ldsm_x4(f.r, lane_row(tile, ld));
 }
 
 // tile: element (k, n) = (0, 0) of a row-major (k, n) matrix; the 8 x 8
 // blocks are transposed on the way, which gives mma's column-major B.
 __device__ __forceinline__ void load_b(FragB& f, const bf16* tile, int ld) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
-               : "=r"(f.r[0]), "=r"(f.r[1]), "=r"(f.r[2]), "=r"(f.r[3])
-               : "r"(lane_row(tile, ld))
-               : "memory");
+  ldsm_x4_trans(f.r, lane_row(tile, ld));
 }
 
 __device__ __forceinline__ void mma(FragC& c, const FragA& a, const FragB& b) {

@@ -1,9 +1,11 @@
 """Fused ResidualDenseBlock: the port of real_esrgan_tpu/ops/pallas_rdb.py.
 
 ``fused_rdb`` computes one whole RDB forward (five dense 3x3 convs, LeakyReLU
-on the first four, 0.2-scaled residual) in one launch of the hand-written
-CUDA kernel ``csrc/fused_rdb.cu``.  It is the hot loop of the generator: 69
-launches per forward, about 93% of its FLOPs.
+on the first four, 0.2-scaled residual) in one launch of a hand-written CUDA
+kernel of ``csrc/fused_rdb.cu``: bfloat16 on the tensor cores, float32 on
+CUDA cores.  It is the hot loop of the generator: 69 launches per forward,
+about 93% of its FLOPs.  ``rdb_plan`` states each kernel's tile and shared
+memory; the wrapper holds the built kernel to it.
 
 Arithmetic is the packed formulation of the flax block
 (real_esrgan_tpu/models/rrdbnet.py, ResidualDenseBlock): a concat conv
@@ -31,6 +33,44 @@ from real_esrgan_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_CHANNELS = 64
 KERNEL_GROWTH = 32
+HALO = 5  # five chained 3x3 convs
+
+
+def rdb_plan(dtype: torch.dtype) -> dict:
+    """The block plan of ``csrc/fused_rdb.cu``'s kernel for ``dtype``.
+
+    ``tile`` is the output tile side T of one block; ``buffers`` the bytes
+    of each shared-memory buffer: the x tile with its halo (side T + 10, 64
+    channels), o1..o4 (sides T + 8 .. T + 2, 32 channels) and, for bfloat16,
+    the ring of two weight slots of 3 taps x 32 input channels x 64 columns;
+    ``smem_bytes`` their sum.  For bfloat16, ``stages`` gives each stage's implicit GEMM: region side and
+    pixels, fragments of 16 pixels, output columns, and how the warps share
+    it: a warp computes 32 columns, so the warps form ``warp_groups`` groups
+    (one a 32-column slice), and warp w of a group of g takes fragments
+    w, w + g, ..., at most ``units_per_warp``.
+    """
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_rdb takes float32 or bfloat16, not {dtype}")
+    c, g = KERNEL_CHANNELS, KERNEL_GROWTH
+    size = torch.finfo(dtype).bits // 8
+    tile = 16 if dtype == torch.bfloat16 else 8
+    sides = [tile + 2 * (HALO - k) for k in range(6)]  # x, o1..o4, the output tile
+    buffers = {("x" if k == 0 else f"o{k}"): sides[k] ** 2 * (c if k == 0 else g) * size
+               for k in range(5)}
+    plan = {"tile": tile, "threads": 512, "buffers": buffers}
+    if dtype == torch.bfloat16:
+        warps = 8
+        buffers["weight_ring"] = 2 * 3 * g * c * size
+        stages = []
+        for k in range(1, 6):
+            frags, columns = -(-sides[k] ** 2 // 16), g if k < 5 else c
+            groups = columns // g
+            stages.append({"side": sides[k], "pixels": sides[k] ** 2, "fragments": frags,
+                           "columns": columns, "warp_groups": groups,
+                           "units_per_warp": -(-frags // (warps // groups))})
+        plan.update(threads=32 * warps, warps=warps, stages=stages)
+    plan["smem_bytes"] = sum(buffers.values())
+    return plan
 
 
 def pack_rdb_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -60,8 +100,9 @@ def pack_rdb_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Ten
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:
-    """``value`` rounded to ``like``'s dtype, as JAX rounds a weak-typed constant."""
-    return torch.tensor(value, dtype=like.dtype, device=like.device)
+    """``value`` rounded to ``like``'s dtype, as JAX rounds a weak-typed constant.
+    Filled on ``like``'s device, so a CUDA graph can capture it."""
+    return torch.full((), value, dtype=like.dtype, device=like.device)
 
 
 def lrelu(x: torch.Tensor) -> torch.Tensor:
@@ -132,15 +173,32 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_rdb_forward.argtypes = [i] + [vp] * 8 + [i, i, i, vp]
         lib.fused_rdb_forward.restype = i
+        for fn in (lib.fused_rdb_tile, lib.fused_rdb_smem_bytes):
+            fn.argtypes, fn.restype = [i], i
+        for dtype, code in _DTYPE_CODES.items():
+            plan = rdb_plan(dtype)
+            built = {"tile": lib.fused_rdb_tile(code), "smem_bytes": lib.fused_rdb_smem_bytes(code)}
+            if built != {key: plan[key] for key in built}:
+                raise RuntimeError(f"csrc/fused_rdb.cu's {dtype} kernel has {built}, rdb_plan "
+                                   f"says tile {plan['tile']}, smem_bytes {plan['smem_bytes']}")
     return lib
+
+
+def built_rdb_plan(dtype: torch.dtype) -> dict:
+    """The tile and shared memory the built kernel for ``dtype`` reports
+    (building it first if needed); loading raises unless they are
+    ``rdb_plan``'s."""
+    lib, code = _library(), _DTYPE_CODES[dtype]
+    return {"tile": lib.fused_rdb_tile(code), "smem_bytes": lib.fused_rdb_smem_bytes(code)}
 
 
 def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> torch.Tensor:
     """One RDB forward on NHWC ``x`` (B, H, W, 64), float32 or bfloat16.
 
     ``packed`` is ``pack_rdb_weights(..., dtype=x.dtype)``.  A CPU tensor
-    goes through ``rdb_plain``; a CUDA tensor through the CUDA kernel, which
-    adds one to ``fused_rdb.launches``.
+    goes through ``rdb_plain``; a CUDA tensor through its dtype's CUDA kernel
+    (bfloat16: tensor cores; float32: CUDA cores), which adds one to
+    ``fused_rdb.launches``, or raises: there is no fallback.
     """
     if x.device.type == "cpu":
         return rdb_plain(x, packed)

@@ -7,8 +7,12 @@ JAX, so it runs on a machine without it:
 
 Bounds: f32 1e-4 (summation order only, TF32 off); bf16 atol/rtol 2e-2 (one
 rounding to bf16 after an f32 sum taken in another order); the conv's copy
-modes are exact.
+modes are exact.  The RDB kernel's bf16 shapes (output tile T=16) take ragged
+edges, images narrower or shorter than a tile, a block whose last fragment is
+clamped, and a batch of three.
 """
+
+import os
 
 import pytest
 import torch
@@ -18,6 +22,10 @@ from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb
 from real_esrgan_tpu_torch.ops.mm_probe import (
     mm_grid, mm_grid_plain, mm_resident, mm_resident_plain,
 )
+from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RDB_TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}
 
 pytestmark = pytest.mark.cuda
 
@@ -38,8 +46,10 @@ def _packed(dtype, device, seed=0):
     return [t.to(device) for t in pack_rdb_weights(kernels, biases, 64, 32, dtype)]
 
 
-@pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 67, 93, 64), (1, 5, 3, 64)],
-                         ids=["aligned", "ragged", "smaller_than_a_tile"])
+@pytest.mark.parametrize("shape", [(1, 48, 64, 64), (2, 67, 93, 64), (1, 5, 3, 64),
+                                   (3, 17, 40, 64), (1, 40, 7, 64), (1, 16, 16, 64)],
+                         ids=["aligned", "ragged", "smaller_than_a_tile", "three_ragged",
+                              "narrower_than_a_tile", "one_tile"])
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 0.0),
                                              (torch.bfloat16, 2e-2, 2e-2)], ids=["f32", "bf16"])
 def test_fused_rdb_kernel_matches_plain(cuda, shape, dtype, atol, rtol):
@@ -51,6 +61,33 @@ def test_fused_rdb_kernel_matches_plain(cuda, shape, dtype, atol, rtol):
     torch.cuda.synchronize()
     assert fused_rdb.launches == before + 1
     torch.testing.assert_close(out.float(), rdb_plain(x, packed).float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_rdb_kernel_matches_plain_with_trained_weights(cuda, dtype):
+    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    convs = [(state[f"trunk.11.rdb2.conv{k}.weight"], state[f"trunk.11.rdb2.conv{k}.bias"])
+             for k in range(1, 6)]
+    packed = [t.to(cuda) for t in pack_rdb_weights([w for w, _ in convs], [b for _, b in convs],
+                                                   64, 32, dtype)]
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = (torch.randn((2, 67, 93, 64), generator=g, device=cuda) * 0.5).to(dtype)
+    atol, rtol = RDB_TOLERANCE[dtype]
+    torch.testing.assert_close(fused_rdb(x, packed).float(), rdb_plain(x, packed).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_rdb_counts_each_launch(cuda, dtype):
+    packed = _packed(dtype, cuda)
+    x = torch.zeros(2, 20, 24, 64, device=cuda, dtype=dtype)
+    before = fused_rdb.launches
+    fused_rdb(x, packed)
+    fused_rdb(x, packed)
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before + 2
+    rdb_plain(x, packed)
+    assert fused_rdb.launches == before + 2
 
 
 def test_fused_rdb_rejects_what_the_kernel_does_not_take(cuda):

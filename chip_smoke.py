@@ -6,10 +6,12 @@
 1. prints the card's name and power limit, as nvidia-smi gives them;
 2. builds the CUDA kernels of the port from ``real_esrgan_tpu_torch/csrc``
    with nvcc (one process a source, all at once), printing each source's
-   build seconds, registers, spills and shared memory, the tensor-core and
-   shared-memory instructions of each kernel as ``cuobjdump -sass`` shows
-   them, and the RDB kernels' block plan (``rdb_plan``), which the wrapper
-   holds the built kernels to;
+   build seconds, registers, spills and shared memory, the tensor-core, TMA,
+   mbarrier and shared-memory instructions of each kernel as ``cuobjdump
+   -sass`` shows them (every ``mm_grid`` kernel must have ``HGMMA`` and
+   ``UTMALDG`` and no ``HMMA``), the RDB kernels' block plan (``rdb_plan``)
+   and ``mm_grid``'s at the gate's shapes (``mm_grid_plan``), each beside
+   what the built library reports;
 3. drives the x4 serving path: ``SRPipeline`` with
    ``assets/inenv10_esrnet_ema.npz`` answers requests in bfloat16 and in
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
@@ -24,8 +26,9 @@
    run, ``--mm``, ``--gate``, and the ``mm_grid`` probe) on the card, with the
    launch counts of ``conv3x3``, ``mm_grid`` and ``mm_resident`` set to 0
    just before and read just after, and holds those three kernels against
-   their plain versions at every shape that run gave them and two smaller
-   ones;
+   their plain versions at every shape that run gave them, smaller and
+   ragged ones, and ``mm_grid`` to exact one-hot probes of its operand
+   layouts;
 6. drives the evaluation path: ``real_esrgan_tpu_torch.test`` (float32 and
    ``--bfloat16``) and ``scripts.eval_pair`` on three crops of the test
    image, recording the RDB kernel's input shapes here too, and NIQE of
@@ -70,7 +73,8 @@ from real_esrgan_tpu_torch.ops.fused_rdb import (
     built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan,
 )
 from real_esrgan_tpu_torch.ops.mm_probe import (
-    mm_grid, mm_grid_plain, mm_resident, mm_resident_plain, mm_resident_smem_bytes,
+    built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
+    mm_resident_smem_bytes,
 )
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
 from real_esrgan_tpu_torch.scripts import eval_pair
@@ -100,6 +104,15 @@ TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}  # atol, 
 DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K1's kernels in csrc/fused_rdb.cu, as the profiler names them
 RDB_KERNEL_NAMES = ("rdb_bf16_kernel", "rdb_f32_kernel")
+# the kernels sass_counts names, by the name in their mangled symbols
+KERNEL_NAMES = RDB_KERNEL_NAMES + ("mm_grid_kernel", "mm_resident_kernel")
+# SASS instructions counted per kernel: tensor cores (HMMA: mma.sync; HGMMA:
+# wgmma), ldmatrix, cp.async, TMA loads, mbarrier operations, barriers,
+# local memory
+SASS_OPS = ("HMMA", "HGMMA", "LDSM", "LDGSTS", "UTMALDG", "SYNCS", "BAR", "LDL", "STL")
+# mm_grid's ragged edges beyond the tool's shapes: k = 96 (a chunk past k)
+# with m = 64, n = 32 (a 64-wide block past n), n = 160 (192-wide)
+MM_RAGGED_SHAPES = ((64, 96, 192), (128, 64, 32), (128, 96, 160))
 # beyond the main paths' shapes: a ragged batch, a block smaller than a tile
 # (fragment tail and clamp), three ragged images (masks at T=16, batch index)
 K1_EXTRA_SHAPES = {(2, 67, 93, 64), (1, 5, 3, 64), (3, 17, 40, 64)}
@@ -132,10 +145,18 @@ def rdb_pack(state_dict, name: str, dtype: torch.dtype):
     return [t.cuda() for t in packed]
 
 
+def kernel_name(symbol: str) -> str:
+    """A kernel's name from its mangled symbol, with its integer template
+    argument: ``mm_grid_kernel<192>``."""
+    base = next((k for k in KERNEL_NAMES if k in symbol), symbol)
+    width = re.search(rf"{base}ILi(\d+)E", symbol)
+    return f"{base}<{width.group(1)}>" if width else base
+
+
 def sass_counts(name: str) -> dict:
-    """Tensor-core (HMMA), ldmatrix (LDSM), cp.async (LDGSTS), barrier and
-    local-memory instructions of each kernel in the built library, as
-    ``cuobjdump -sass`` lists them; empty where the toolkit lacks cuobjdump."""
+    """The SASS_OPS instructions of each kernel in the built library, as
+    ``cuobjdump -sass`` lists them (whole words: HMMA does not match HGMMA);
+    empty where the toolkit lacks cuobjdump."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         return {}
@@ -145,8 +166,8 @@ def sass_counts(name: str) -> dict:
     for line in sass.splitlines():
         found = re.search(r"Function : (\S+)", line)
         if found:
-            kernel = next((k for k in RDB_KERNEL_NAMES if k in found.group(1)), found.group(1))
-            counts[kernel] = dict.fromkeys(("HMMA", "LDSM", "LDGSTS", "BAR", "LDL", "STL"), 0)
+            kernel = kernel_name(found.group(1))
+            counts[kernel] = dict.fromkeys(SASS_OPS, 0)
         elif kernel is not None:
             for op in counts[kernel]:
                 counts[kernel][op] += bool(re.search(rf"\b{op}\b", line))
@@ -165,11 +186,24 @@ def build_kernels() -> None:
         log = _build.BUILD_LOG[name]
         emit(build={name: {"nvcc_seconds": round(log["seconds"], 3),
                            "ptxas": [line.strip() for line in log["log"].splitlines()
-                                     if re.search(r"registers|spill|entry function", line)]}})
+                                     if re.search(r"Used \d+ registers|spill|entry function|C7520",
+                                                  line)]}})
     emit(build_wall_seconds=round(wall, 3))
-    emit(sass={"fused_rdb": sass_counts("fused_rdb")})
+    sass = {name: sass_counts(name) for name in ("fused_rdb", "mm_probe")}
+    emit(sass=sass)
+    grid_kernels = {k: v for k, v in sass["mm_probe"].items() if k.startswith("mm_grid_kernel")}
+    check(not sass["mm_probe"] or len(grid_kernels) == 4, f"mm_grid kernels built: {grid_kernels}")
+    for kernel, ops in grid_kernels.items():
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
+              f"{kernel} is not the TMA + wgmma kernel: {ops}")
     emit(fused_rdb_blocks={DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)}
                            for d in TOLERANCE})
+    blocks = {f"{m}x{k}x{n}": {"plan": mm_grid_plan(m, k, n), "built": built_mm_grid_plan(m, k, n)}
+              for m, k, n in conv_exp.GATE_SHAPES}
+    emit(mm_grid_blocks=blocks)
+    for shape, pair in blocks.items():
+        check(pair["plan"] == pair["built"], f"mm_grid at {shape}: built {pair['built']}, "
+                                             f"mm_grid_plan {pair['plan']}")
     emit(dynamic_smem_bytes={
         "conv3x3[64->192, 96 channels a block]": conv3x3_smem_bytes(64, 3),
         "mm_resident[k=192, 96 columns a block]": mm_resident_smem_bytes(192, 3),
@@ -370,12 +404,26 @@ def conv_operands(shape, cout, seed=2):
     return x, w
 
 
+def one_hot_probes():
+    """Exact probes of mm_grid's operand layouts, (name, a, b): a = I with b
+    coded by position (arange mod 251, integers bf16 holds exactly), so c =
+    b; and b = three 64-column identities scaled by 1, 2, 4 with a coded by
+    position, so c's column block j is 2^j a.  A wrong swizzle, LBO or SBO
+    shows as a permutation of the codes."""
+    code = lambda r, c: (torch.arange(r * c, device="cuda") % 251).reshape(r, c)  # noqa: E731
+    eye = torch.eye(64, device="cuda")
+    scaled = torch.cat([eye * 2.0 ** j for j in range(3)], dim=1)
+    return [(name, a.to(torch.bfloat16), b.to(torch.bfloat16))
+            for name, a, b in (("a_identity", eye, code(64, 192)),
+                               ("b_identity", code(128, 64), scaled))]
+
+
 def check_tool_kernels() -> None:
     """K2-K4 against their plain versions on the card, at every shape the
-    tool's run gives them (its default conv, the five of ``--mm``) and
-    smaller ones, which between them take every width the kernels are built
-    for: atol/rtol 2e-2 for the products, equality for the conv's copy
-    modes, the shape alone for ``dots``."""
+    tool's run gives them (its default conv, the five of ``--mm``), smaller
+    and ragged ones, which between them take every width the kernels are
+    built for: atol/rtol 2e-2 for the products, equality for the conv's copy
+    modes and mm_grid's one-hot probes, the shape alone for ``dots``."""
     atol, rtol = BF16_TOLERANCE
     b, h, w_, cin, cout, tile = CONV_SHAPE
     for shape, n_out, rows in (((b, h, w_, cin), cout, tile), ((2, 64, 48, 32), 96, 16)):
@@ -390,7 +438,15 @@ def check_tool_kernels() -> None:
                            "max_abs_diff": err, "atol": atol, "rtol": rtol,
                            "copy_modes_equal": exact, "ok": ok})
         check(ok, f"conv3x3 disagrees with conv3x3_plain at {shape} -> {n_out}")
-    for m, k, n in (*conv_exp.MM_SHAPES, (256, 96, 160), (128, 64, 64)):
+    for name, a, bm in one_hot_probes():
+        out = mm_grid(a, bm)
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(out, mm_grid_plain(a, bm)))
+        emit(kernel_check={"kernel": "mm_grid", "probe": name,
+                           "shape": [a.shape[0], a.shape[1], bm.shape[1]], "exact": exact,
+                           "ok": exact})
+        check(exact, f"mm_grid's one-hot probe {name} is not exact")
+    for m, k, n in (*conv_exp.MM_SHAPES, (256, 96, 160), (128, 64, 64), *MM_RAGGED_SHAPES):
         a, bm = conv_exp.mm_operands(m, k, n, 0.05, torch.device("cuda"), seed=3)
         for name, out, ref in (("mm_grid", mm_grid(a, bm), mm_grid_plain(a, bm)),
                                ("mm_resident", mm_resident(a, bm, MM_REPS),
@@ -411,8 +467,8 @@ def drive_conv_exp() -> dict:
     conv_exp.main([])
     conv_exp.main(["--mm"])
     verdict = conv_exp.main(["--gate"])
-    for m, k, n in conv_exp.GATE_SHAPES:  # 200 launches: one alone is shorter than its launch
-        conv_exp.bench_mm_grid(m, k, n, 200, torch.device("cuda"))
+    for m, k, n in conv_exp.GATE_SHAPES:  # one launch is shorter than its launch through the host
+        conv_exp.bench_mm_grid(m, k, n, 200, torch.device("cuda"), timer=conv_exp.time_in_graph)
     launches = {name: wrapper.launches for name, wrapper in wrappers.items()}
     emit(conv_exp={"launches": launches, "gate": verdict})
     for name, count in launches.items():

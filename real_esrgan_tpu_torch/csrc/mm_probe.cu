@@ -1,18 +1,26 @@
-// Two bf16 matrix-product probes for Hopper (sm_90a) on the tensor cores
-// (mma.sync fed by ldmatrix, f32 accumulate, one rounding to bf16 at the end).
+// Two bf16 matrix-product probes for Hopper (sm_90a) on the tensor cores,
+// f32 accumulate, one rounding to bf16 at the end.
 //
-// They replace the two Pallas TPU probes of tools/pallas_conv_exp.py:
-//
-// * mm_grid_forward replaces bench_mosaic_mm: C = A @ B, (m, k) @ (k, n).
-//   The TPU kernel walks a sequential grid of 8192-row blocks; here the grid
-//   is parallel, one block for each 64 x BN tile of C, and k is streamed
-//   through shared memory in chunks of 64 with cp.async, three chunks in
-//   flight or in use, so a block waits for device memory once, not once a
-//   chunk.  Bound: bytes.  At the RDB's shapes (8192 x 192 @ 192 x 192) the
-//   product reads and writes 6.4 MB for 0.6 GFLOP, about 94 FLOP a byte
-//   against the card's 295, and the whole of it takes less time than a
-//   launch.  A block holds 68 KB of shared memory at BN = 96, so three
-//   blocks share an SM and all 384 of that shape run at once.
+// * mm_grid_forward replaces tools/pallas_conv_exp.py::bench_mosaic_mm (the
+//   pallas_call at :119): C = A @ B, (m, k) @ (k, n).  It is bound by bytes:
+//   at the RDB's shapes (8192 x 192 @ 192 x 192, and k = 576) the product
+//   moves 6.4 (12.7) MB for 0.6 (1.8) GFLOP, 94 (143) FLOP a byte against the
+//   card's 295, so the design is about keeping bytes in flight and reading
+//   each byte of device memory once.  One block computes a 64 x BN tile of C,
+//   BN the whole of n up to 256, so every row of A is read once and B, small,
+//   comes from L2.  One producer warp walks k in chunks of 64 and, for each,
+//   issues TMA loads of A's 64 x 64 box and B's BN / 64 boxes of 64 x 64 into
+//   a ring of `stages` shared-memory stages (up to six, 192 KB at BN = 192),
+//   armed on a `full` mbarrier; the consumer warpgroup waits on it, runs
+//   wgmma m64nBNk16 from shared memory (A K-major, B MN-major, both 128-byte
+//   swizzled, hopper.cuh), keeps one chunk's group in flight and releases
+//   the stage before it on an `empty` mbarrier.  Ragged k and columns past n
+//   arrive as zeros from TMA.  The epilogue rounds to bf16 into the first
+//   stage, laid out as 128-byte-swizzled boxes, and one thread stores them
+//   with TMA, which writes nothing past n: on the H100 that is faster than
+//   storing from registers, whose 16-byte row pieces leave each 32-byte
+//   sector half written.  ops/mm_probe.py::mm_grid_plan states the
+//   geometry, and the launch refuses any other.
 //
 // * mm_resident_forward replaces bench_mosaic_mm_vmem: the same product
 //   repeated `reps` times inside the kernel and summed in f32.  The TPU
@@ -22,14 +30,14 @@
 //   shared memory, with no device-memory read in the loop.  At k = 576,
 //   n = 192 that is 75 KB of A beside 120 KB of B's column half (BN = 96).
 //   Bound: operations (2 m k n reps).  What it reads is how fast mma.sync
-//   fed by ldmatrix from shared memory keeps the tensor cores busy: each
-//   warp loads 2 + NF fragments for 4 NF products a k step, and at k = 576
-//   one block of four warps has an SM to itself.
-//
-// m is a multiple of 64, k of 16, n of 32 * NF; the wrapper picks NF.  Only
-// the widths the experiment tool's shapes reach are built (mm_grid 3 and 5,
-// mm_resident 3, 4 and 5), and NF = 1, which takes every other n.
+//   fed by ldmatrix (mma_tile.cuh) from shared memory keeps the tensor cores
+//   busy: each warp loads 2 + NF fragments for 4 NF products a k step, and
+//   at k = 576 one block of four warps has an SM to itself.  m is a multiple
+//   of 64, k of 16, n of 32 NF; the wrapper picks NF (5, 4, 3 or 1).
 
+#include <algorithm>
+
+#include "hopper.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -37,10 +45,131 @@ namespace {
 using tile::bf16;
 using tile::kSkew;
 
-constexpr int kThreads = 128;  // four warps, 2 x 2 over the block's tile
+constexpr int kThreads = 128;  // mm_resident: four warps, 2 x 2 over the block's tile
 constexpr int kBM = 64;        // rows of C a block
-constexpr int kBK = 64;        // k chunk of mm_grid
-constexpr int kStages = 3;     // k chunks of mm_grid in flight or in use
+
+// mm_grid
+constexpr int kBK = 64;                // k chunk: one 128-byte swizzle row of bf16
+constexpr int kAtom = 64;              // columns of B in one TMA box (128 bytes)
+constexpr int kMaxBN = 256;            // the widest wgmma
+constexpr int kBoxBytes = 64 * 128;    // one TMA box: 64 rows of 128 bytes
+constexpr int kMaxStages = 6;
+constexpr int kAlign = 1024;           // the 128-byte swizzle repeats every 1024 bytes
+constexpr int kConsumers = 128;        // one warpgroup: warps 0-3
+constexpr int kGridThreads = kConsumers + 32;  // and the producer warp
+constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may have
+
+struct GridPlan {
+  int bn, stages, grid_x, grid_y, smem_bytes, tx_bytes;
+};
+
+// The launch geometry of mm_grid, as ops/mm_probe.py::mm_grid_plan states it:
+// a stage is A's box and B's bn / 64 boxes, each full box counted in the
+// stage's expected transaction bytes; two mbarriers (full, empty) a stage;
+// 1024 bytes to align the ring.
+GridPlan grid_plan(int m, int k, int n) {
+  GridPlan p;
+  p.bn = std::min(kMaxBN, (n + kAtom - 1) / kAtom * kAtom);
+  p.tx_bytes = kBoxBytes * (1 + p.bn / kAtom);
+  const int chunks = (k + kBK - 1) / kBK;
+  const int fit = (kSmemLimit - kAlign) / (p.tx_bytes + 16);
+  p.stages = std::min({chunks, kMaxStages, fit});
+  p.grid_x = (n + p.bn - 1) / p.bn;
+  p.grid_y = m / kBM;
+  p.smem_bytes = kAlign + p.stages * (p.tx_bytes + 16);
+  return p;
+}
+
+template <int BN>
+__global__ void __launch_bounds__(kGridThreads) mm_grid_kernel(
+    const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+    const __grid_constant__ CUtensorMap map_c, int k, int n, int stages) {
+  constexpr int kStageBytes = kBoxBytes * (1 + BN / kAtom);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kStageBytes);
+  uint64_t* empty = full + stages;
+  // warp-uniform as far as the compiler can see (a broadcast lane), so the
+  // consumer's wgmma sit on no divergent path
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * BN;
+  const int chunks = (k + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // the producer: one thread issues every load
+    if (lane == 0) {
+      for (int chunk = 0; chunk < chunks; ++chunk) {
+        const int s = chunk % stages;
+        const uint32_t round = chunk / stages;
+        hopper::mbar_wait(&empty[s], (round & 1) ^ 1);  // round 0 passes at once
+        unsigned char* stage = ring + s * kStageBytes;
+        hopper::mbar_arrive_expect_tx(&full[s], kStageBytes);
+        hopper::tma_load_2d(stage, &map_a, &full[s], chunk * kBK, row0);
+#pragma unroll
+        for (int j = 0; j < BN / kAtom; ++j)
+          hopper::tma_load_2d(stage + kBoxBytes * (1 + j), &map_b, &full[s], col0 + j * kAtom,
+                              chunk * kBK);
+      }
+    }
+    return;
+  }
+
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int chunk = 0; chunk < chunks; ++chunk) {
+    const int s = chunk % stages;
+    hopper::mbar_wait(&full[s], (chunk / stages) & 1);
+    const uint32_t a_s = hopper::smem_u32(ring + s * kStageBytes), b_s = a_s + kBoxBytes;
+    const int steps = min(kBK, k - chunk * kBK) / 16;
+    hopper::fence_operands(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)  // unrolled: measurably faster at k = 576
+      if (kk < steps)
+        hopper::Wgmma<BN>::mma(acc, hopper::smem_desc(a_s + 32 * kk, 16, 1024),
+                               hopper::smem_desc(b_s + 2048 * kk, kBoxBytes, 1024), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the chunk before this one has been read
+    hopper::fence_operands(acc);
+    if (chunk > 0) hopper::mbar_arrive(&empty[(chunk - 1) % stages]);  // every consumer thread
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc);
+
+  // every chunk is consumed: stage 0 becomes C's tile, BN / 64 boxes of 64
+  // rows x 128 bytes, 128-byte swizzled like the loads
+  unsigned char* tile_c = ring;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int col = 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = warp * 16 + lane / 4 + 8 * half;
+      const uint32_t offset = (col / kAtom) * kBoxBytes + r * 128 + (col % kAtom) * 2;
+      *reinterpret_cast<__nv_bfloat162*>(tile_c + (offset ^ ((r % 8) << 4))) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+    }
+  }
+  hopper::fence_proxy_async();
+  hopper::named_barrier(1, kConsumers);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int j = 0; j < BN / kAtom; ++j)
+      if (col0 + j * kAtom < n)
+        hopper::tma_store_2d(&map_c, tile_c + j * kBoxBytes, col0 + j * kAtom, row0);
+    hopper::bulk_commit();
+    hopper::bulk_wait_read();
+  }
+}
 
 template <int NF>
 __device__ __forceinline__ void store_tile(tile::FragC (&acc)[2][NF], bf16* c, int n, int row0,
@@ -51,46 +180,6 @@ __device__ __forceinline__ void store_tile(tile::FragC (&acc)[2][NF], bf16* c, i
     for (int j = 0; j < NF; ++j)
       tile::store_bf16(acc[i][j],
                        [&](int r) { return c + (size_t)(row0 + i * 16 + r) * n + col0 + j * 16; });
-}
-
-template <int NF>
-__global__ void __launch_bounds__(kThreads) mm_grid_kernel(const bf16* __restrict__ a,
-                                                           const bf16* __restrict__ b,
-                                                           bf16* __restrict__ c, int k, int n) {
-  constexpr int BN = 32 * NF, LDA = kBK + kSkew, LDB = BN + kSkew;
-  constexpr int kStageElems = kBM * LDA + kBK * LDB;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* stages = reinterpret_cast<bf16*>(smem);  // kStages x (A chunk, B chunk)
-  const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * BN;
-  const int chunks = (k + kBK - 1) / kBK;
-
-  // starts the copy of k chunk `chunk` into its stage; one group a call, so
-  // that the groups in flight can be counted
-  auto start_copy = [&](int chunk) {
-    if (chunk < chunks) {
-      const int k0 = chunk * kBK, kc = min(kBK, k - k0);
-      bf16* a_s = stages + (chunk % kStages) * kStageElems;
-      tile::copy_rows_async(a_s, LDA, a + (size_t)row0 * k + k0, k, kBM, kc / 8);
-      tile::copy_rows_async(a_s + kBM * LDA, LDB, b + (size_t)k0 * n + col0, n, kc, BN / 8);
-    }
-    tile::cp_async_commit();
-  };
-
-  tile::FragC acc[2][NF];
-  tile::zero<NF>(acc);
-  for (int chunk = 0; chunk < kStages - 1; ++chunk) start_copy(chunk);
-  for (int chunk = 0; chunk < chunks; ++chunk) {
-    start_copy(chunk + kStages - 1);  // into the stage the products before this one read
-    tile::cp_async_wait<kStages - 1>();
-    __syncthreads();
-    const bf16* a_w = stages + (chunk % kStages) * kStageElems + wr * 32 * LDA;
-    const bf16* b_w = stages + (chunk % kStages) * kStageElems + kBM * LDA + wc * 16 * NF;
-    tile::mma_tile<NF>(tile::RowCursor{a_w}, LDA, 16 * LDA, b_w, LDB, min(kBK, k - chunk * kBK) / 16,
-                       acc);
-    __syncthreads();
-  }
-  store_tile<NF>(acc, c, n, row0 + wr * 32, col0 + wc * 16 * NF);
 }
 
 template <int NF>
@@ -129,14 +218,22 @@ bool bad_shape(int m, int k, int n, int nf) {
   return nf < 1 || m <= 0 || k <= 0 || m % kBM || k % 16 || n % (32 * nf);
 }
 
-template <int NF>
-int launch_grid(const bf16* a, const bf16* b, bf16* c, int m, int k, int n, cudaStream_t s) {
-  const size_t smem = sizeof(bf16) * kStages * (kBM * (kBK + kSkew) + kBK * (32 * NF + kSkew));
-  cudaError_t err = cudaFuncSetAttribute(mm_grid_kernel<NF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mm_grid_kernel<NF><<<dim3(n / (32 * NF), m / kBM), kThreads, smem, s>>>(a, b, c, k, n);
+template <int BN>
+int launch_grid(const void* a, const void* b, bf16* c, int m, int k, int n, const GridPlan& p,
+                cudaStream_t s) {
+  CUtensorMap map_a, map_b, map_c;
+  int err = hopper::encode_bf16_2d(&map_a, a, m, k, kBM, kBK);
+  if (err != 0) return err;
+  err = hopper::encode_bf16_2d(&map_b, b, k, n, kBK, kAtom);
+  if (err != 0) return err;
+  err = hopper::encode_bf16_2d(&map_c, c, m, n, kBM, kAtom);
+  if (err != 0) return err;
+  cudaError_t cerr = cudaFuncSetAttribute(mm_grid_kernel<BN>,
+                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          p.smem_bytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  mm_grid_kernel<BN><<<dim3(p.grid_x, p.grid_y), kGridThreads, p.smem_bytes, s>>>(
+      map_a, map_b, map_c, k, n, p.stages);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -154,22 +251,39 @@ int launch_resident(const bf16* a, const bf16* b, bf16* c, int m, int k, int n, 
 
 }  // namespace
 
-// c (m, n) = a (m, k) @ b (k, n), all bf16 row-major.  nf: column fragments
-// of one warp, 1, 3 or 5; a block's tile of C is 64 x 32 nf.  Returns the
-// cudaError_t of the launch.
-extern "C" int mm_grid_forward(const void* a, const void* b, void* c, int m, int k, int n, int nf,
-                               void* stream) {
-  if (bad_shape(m, k, n, nf)) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* pa = static_cast<const bf16*>(a);
-  const bf16* pb = static_cast<const bf16*>(b);
+// c (m, n) = a (m, k) @ b (k, n), all bf16 row-major, m a multiple of 64, k
+// of 16, n of 32.  bn and stages must be grid_plan's for this shape (the
+// wrapper passes mm_grid_plan's).  Returns 0, the cudaError_t of the launch,
+// or hopper::kEncodeErrorBase + the CUresult of a failed tensor-map encode.
+extern "C" int mm_grid_forward(const void* a, const void* b, void* c, int m, int k, int n, int bn,
+                               int stages, void* stream) {
+  if (m <= 0 || k <= 0 || n <= 0 || m % kBM || k % 16 || n % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GridPlan p = grid_plan(m, k, n);
+  if (bn != p.bn || stages != p.stages) return static_cast<int>(cudaErrorInvalidValue);
   bf16* pc = static_cast<bf16*>(c);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nf) {
-    case 1: return launch_grid<1>(pa, pb, pc, m, k, n, s);
-    case 3: return launch_grid<3>(pa, pb, pc, m, k, n, s);
-    case 5: return launch_grid<5>(pa, pb, pc, m, k, n, s);
+  switch (p.bn) {
+    case 64: return launch_grid<64>(a, b, pc, m, k, n, p, s);
+    case 128: return launch_grid<128>(a, b, pc, m, k, n, p, s);
+    case 192: return launch_grid<192>(a, b, pc, m, k, n, p, s);
+    case 256: return launch_grid<256>(a, b, pc, m, k, n, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The geometry mm_grid_forward launches at (m, k, n), into out[9]: bn, bk,
+// stages, grid x, grid y, threads, dynamic shared-memory bytes, cluster size,
+// expected transaction bytes a stage.  Returns 0, or cudaErrorInvalidValue
+// for a shape the kernel does not take.
+extern "C" int mm_grid_built_plan(int m, int k, int n, int* out) {
+  if (m <= 0 || k <= 0 || n <= 0 || m % kBM || k % 16 || n % 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GridPlan p = grid_plan(m, k, n);
+  const int values[9] = {p.bn, kBK, p.stages, p.grid_x, p.grid_y, kGridThreads, p.smem_bytes, 1,
+                         p.tx_bytes};
+  std::copy(values, values + 9, out);
+  return 0;
 }
 
 // c (m, n) = bf16(sum over reps of a @ b), the sum kept in f32.  nf: 1, 3, 4 or 5.

@@ -108,10 +108,13 @@ def mm_operands(m: int, k: int, n: int, scale: float, device: torch.device, seed
     return a, b
 
 
-def bench_mm_grid(m: int, k: int, n: int, iters: int, device: torch.device, seed: int = 0) -> float:
-    """TF/s of ``mm_grid`` at (m, k) @ (k, n); prints one line."""
+def bench_mm_grid(m: int, k: int, n: int, iters: int, device: torch.device, seed: int = 0,
+                  timer=time_launches) -> float:
+    """TF/s of ``mm_grid`` at (m, k) @ (k, n); prints one line.  One launch
+    is shorter than its launch through the host: ``timer=time_in_graph``
+    reads the device's time."""
     a, b = mm_operands(m, k, n, 0.05, device, seed)
-    dt = time_launches(lambda: mm_grid(a, b), iters, device)
+    dt = timer(lambda: mm_grid(a, b), iters, device)
     tf = 2 * m * k * n / dt / 1e12
     print(f"mm_grid ({m}x{k})@({k}x{n}): {dt * 1e3:7.3f} ms  {tf:6.1f} TF/s", flush=True)
     return tf

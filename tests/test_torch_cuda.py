@@ -20,7 +20,7 @@ import torch
 from real_esrgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
 from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb_plain
 from real_esrgan_tpu_torch.ops.mm_probe import (
-    mm_grid, mm_grid_plain, mm_resident, mm_resident_plain,
+    built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
 )
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
 
@@ -163,6 +163,47 @@ def test_mm_grid_matches_plain(cuda, m, k, n):
     torch.cuda.synchronize()
     assert mm_grid.launches == before + 1
     torch.testing.assert_close(out.float(), mm_grid_plain(a, b).float(), atol=2e-2, rtol=2e-2)
+
+
+# mm_grid's edges: ragged k (a chunk of 32 past one of 64) with m = 64, one
+# chunk shorter than a box (k = 16), n = 32 (a 64-wide block half past n),
+# n = 160 (192-wide), n = 320 (two 256-wide column blocks, the second past n)
+MM_GRID_RAGGED = [(64, 96, 192), (64, 16, 64), (128, 64, 32), (128, 96, 160), (128, 128, 320)]
+
+
+@pytest.mark.parametrize("m,k,n", MM_GRID_RAGGED)
+def test_mm_grid_ragged_matches_plain(cuda, m, k, n):
+    a, b = _mm_operands(cuda, m, k, n)
+    out = mm_grid(a, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), mm_grid_plain(a, b).float(), atol=2e-2, rtol=2e-2)
+
+
+def one_hot_probes(device):
+    """Two exact probes of mm_grid's operand layouts, (name, a, b): a = I with
+    b coded by position (arange mod 251: integers bf16 holds exactly), so
+    c = b; and b = three 64-column identities scaled by 1, 2, 4 with a coded
+    by position, so c's column block j is 2^j a.  A wrong swizzle, LBO or SBO
+    shows as a permutation of the codes, not as noise."""
+    code = lambda r, c: (torch.arange(r * c, device=device) % 251).reshape(r, c)  # noqa: E731
+    eye = torch.eye(64, device=device)
+    scaled = torch.cat([eye * 2.0 ** j for j in range(3)], dim=1)
+    return [("a_identity", eye, code(64, 192)), ("b_identity", code(128, 64), scaled)]
+
+
+@pytest.mark.parametrize("probe", [0, 1], ids=["a_identity", "b_identity"])
+def test_mm_grid_one_hot_probes_are_exact(cuda, probe):
+    _, a, b = one_hot_probes(cuda)[probe]
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    out = mm_grid(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mm_grid_plain(a, b))
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES + MM_GRID_RAGGED)
+def test_mm_grid_launches_at_its_plan(cuda, m, k, n):
+    assert built_mm_grid_plan(m, k, n) == mm_grid_plan(m, k, n)
 
 
 @pytest.mark.parametrize("reps", [1, 32])

@@ -8,10 +8,12 @@
    with nvcc (one process a source, all at once), printing each source's
    build seconds, registers, spills and shared memory, the tensor-core, TMA,
    mbarrier and shared-memory instructions of each kernel as ``cuobjdump
-   -sass`` shows them (every ``mm_grid`` kernel must have ``HGMMA`` and
-   ``UTMALDG`` and no ``HMMA``), the RDB kernels' block plan (``rdb_plan``)
-   and ``mm_grid``'s at the gate's shapes (``mm_grid_plan``), each beside
-   what the built library reports;
+   -sass`` shows them (every ``mm_grid`` and ``conv3x3`` kernel must have
+   ``HGMMA`` and ``UTMALDG`` and no ``HMMA``, and no build may warn C7520,
+   serialised ``wgmma``), the RDB kernels' block plan (``rdb_plan``),
+   ``mm_grid``'s at the gate's shapes (``mm_grid_plan``) and ``conv3x3``'s
+   at the tool's default shape (``conv3x3_plan``), each beside what the
+   built library reports;
 3. drives the x4 serving path: ``SRPipeline`` with
    ``assets/inenv10_esrnet_ema.npz`` answers requests in bfloat16 and in
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
@@ -27,8 +29,8 @@
    launch counts of ``conv3x3``, ``mm_grid`` and ``mm_resident`` set to 0
    just before and read just after, and holds those three kernels against
    their plain versions at every shape that run gave them, smaller and
-   ragged ones, and ``mm_grid`` to exact one-hot probes of its operand
-   layouts;
+   ragged ones, and ``mm_grid`` and ``conv3x3`` to exact one-hot probes of
+   their operand layouts;
 6. drives the evaluation path: ``real_esrgan_tpu_torch.test`` (float32 and
    ``--bfloat16``) and ``scripts.eval_pair`` on three crops of the test
    image, recording the RDB kernel's input shapes here too, and NIQE of
@@ -38,10 +40,12 @@
 7. holds the RDB kernel against its plain PyTorch version on the card, with
    the trained weights of several RDBs, at every shape the serving and the
    evaluation path gave it in each dtype, a ragged batch, a block smaller
-   than a tile and a batch of three ragged images;
+   than a tile and a batch of three ragged images, and checks that it
+   raises under autograd (it has no backward);
 8. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
-   version also inside a CUDA graph, without the host's gaps), and prints
+   version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
+   without the host's gaps), and prints
    one JSON line ``{"kernels": [...]}``; the last line is
    ``{"ok": true, "device": {...}}``.
 
@@ -68,7 +72,9 @@ from real_esrgan_tpu_torch import test as test_cli
 from real_esrgan_tpu_torch.metrics.niqe import NIQE, niqe_features
 from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops import _build
-from real_esrgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain, conv3x3_smem_bytes
+from real_esrgan_tpu_torch.ops.conv3x3 import (
+    built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
+)
 from real_esrgan_tpu_torch.ops.fused_rdb import (
     built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan,
 )
@@ -105,7 +111,7 @@ DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K1's kernels in csrc/fused_rdb.cu, as the profiler names them
 RDB_KERNEL_NAMES = ("rdb_bf16_kernel", "rdb_f32_kernel")
 # the kernels sass_counts names, by the name in their mangled symbols
-KERNEL_NAMES = RDB_KERNEL_NAMES + ("mm_grid_kernel", "mm_resident_kernel")
+KERNEL_NAMES = RDB_KERNEL_NAMES + ("mm_grid_kernel", "mm_resident_kernel", "conv3x3_kernel")
 # SASS instructions counted per kernel: tensor cores (HMMA: mma.sync; HGMMA:
 # wgmma), ldmatrix, cp.async, TMA loads, mbarrier operations, barriers,
 # local memory
@@ -122,6 +128,12 @@ K1_EXTRA_SHAPES = {(2, 67, 93, 64), (1, 5, 3, 64), (3, 17, 40, 64)}
 SEAM_LIMIT = {"max": 16.0, "mean": 0.5}
 KERNEL_SOURCES = ("fused_rdb", "conv3x3", "mm_probe")
 CONV_SHAPE = (8, 256, 256, 64, 192, 32)  # the tool's default: B, H, W, Cin, Cout, tile
+# K2's shapes beside the tool's default ((B, H, W, Cin), Cout, tile): Cin = 32
+# (zeros past Cin), W = 48 and Cout = 64 (the 64-wide kernel)
+CONV_EXTRA_SHAPES = (((2, 64, 48, 32), 96, 16), ((1, 64, 48, 64), 64, 16))
+# K2's one-hot probes: ((B, H, W, Cin), Cout, tile), each at all nine taps
+CONV_PROBE_SHAPES = (((1, 64, 48, 64), 64, 16), ((2, 16, 32, 32), 96, 8),
+                     ((1, 16, 32, 64), 192, 8))
 MM_REPS = 32
 BF16_TOLERANCE = TOLERANCE[torch.bfloat16]
 # crops of the test image the evaluation path scores: (top, left, height, width)
@@ -147,10 +159,12 @@ def rdb_pack(state_dict, name: str, dtype: torch.dtype):
 
 def kernel_name(symbol: str) -> str:
     """A kernel's name from its mangled symbol, with its integer template
-    argument: ``mm_grid_kernel<192>``."""
+    arguments: ``mm_grid_kernel<192>``, ``conv3x3_kernel<96,1>``."""
     base = next((k for k in KERNEL_NAMES if k in symbol), symbol)
-    width = re.search(rf"{base}ILi(\d+)E", symbol)
-    return f"{base}<{width.group(1)}>" if width else base
+    args = re.search(rf"{base}I((?:Li\d+E)+)E", symbol)
+    if args is None:
+        return base
+    return f"{base}<{','.join(re.findall(r'Li(-?\d+)E', args.group(1)))}>"
 
 
 def sass_counts(name: str) -> dict:
@@ -188,14 +202,20 @@ def build_kernels() -> None:
                            "ptxas": [line.strip() for line in log["log"].splitlines()
                                      if re.search(r"Used \d+ registers|spill|entry function|C7520",
                                                   line)]}})
+        check("C7520" not in log["log"], f"ptxas serialised wgmma in {name}.cu (C7520)")
     emit(build_wall_seconds=round(wall, 3))
-    sass = {name: sass_counts(name) for name in ("fused_rdb", "mm_probe")}
+    sass = {name: sass_counts(name) for name in KERNEL_SOURCES}
     emit(sass=sass)
-    grid_kernels = {k: v for k, v in sass["mm_probe"].items() if k.startswith("mm_grid_kernel")}
-    check(not sass["mm_probe"] or len(grid_kernels) == 4, f"mm_grid kernels built: {grid_kernels}")
-    for kernel, ops in grid_kernels.items():
+    hopper = {k: v for name in ("mm_probe", "conv3x3") for k, v in sass[name].items()
+              if k.startswith(("mm_grid_kernel", "conv3x3_kernel"))}
+    built = sorted(k.split("<")[0] for k in hopper)
+    check(not sass["mm_probe"] or built == ["conv3x3_kernel"] * 5 + ["mm_grid_kernel"] * 4,
+          f"TMA + wgmma kernels built: {sorted(hopper)}")
+    for kernel, ops in hopper.items():
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
-              f"{kernel} is not the TMA + wgmma kernel: {ops}")
+              f"{kernel} is not a TMA + wgmma kernel: {ops}")
+        check(not kernel.startswith("conv3x3") or ops["LDL"] + ops["STL"] == 0,
+              f"{kernel} uses local memory: {ops}")
     emit(fused_rdb_blocks={DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)}
                            for d in TOLERANCE})
     blocks = {f"{m}x{k}x{n}": {"plan": mm_grid_plan(m, k, n), "built": built_mm_grid_plan(m, k, n)}
@@ -204,8 +224,13 @@ def build_kernels() -> None:
     for shape, pair in blocks.items():
         check(pair["plan"] == pair["built"], f"mm_grid at {shape}: built {pair['built']}, "
                                              f"mm_grid_plan {pair['plan']}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    conv = {"plan": conv3x3_plan(*CONV_SHAPE, sms), "built": built_conv3x3_plan(*CONV_SHAPE, sms)}
+    emit(conv3x3_blocks={"shape": list(CONV_SHAPE), "sms": sms, **conv})
+    check(conv["plan"] == conv["built"], f"conv3x3 at {CONV_SHAPE}: built {conv['built']}, "
+                                         f"conv3x3_plan {conv['plan']}")
     emit(dynamic_smem_bytes={
-        "conv3x3[64->192, 96 channels a block]": conv3x3_smem_bytes(64, 3),
+        "conv3x3[64->192, 96 channels a block]": conv["plan"]["smem_bytes"],
         "mm_resident[k=192, 96 columns a block]": mm_resident_smem_bytes(192, 3),
         "mm_resident[k=576, 96 columns a block]": mm_resident_smem_bytes(576, 3)})
 
@@ -238,6 +263,29 @@ def check_kernels(state_dict, main_shapes: dict) -> None:
                                "max_abs_diff": diff.max().item(), "atol": atol, "rtol": rtol,
                                "ok": ok})
                 check(ok, f"fused_rdb {DTYPE_NAME[dtype]} {name} {shape} disagrees with rdb_plain")
+
+
+def check_autograd_guard(state_dict) -> None:
+    """fused_rdb has no backward: with autograd on, a CUDA input or packed
+    weight that requires grad raises instead of cutting the graph; under
+    no_grad the same call runs."""
+    packed = rdb_pack(state_dict, "trunk.0.rdb1", torch.float32)
+    x = torch.zeros(1, 16, 16, 64, device="cuda", requires_grad=True)
+    before = fused_rdb.launches
+    raised = {}
+    for name, args in (("input", (x, packed)),
+                       ("weight", (x.detach(), [packed[0].clone().requires_grad_()] + packed[1:]))):
+        try:
+            fused_rdb(*args)
+            raised[name] = False
+        except RuntimeError as err:
+            raised[name] = "no backward" in str(err)
+    with torch.no_grad():
+        fused_rdb(x, packed)
+    torch.cuda.synchronize()
+    emit(autograd_guard={"raised": raised, "launches_under_no_grad": fused_rdb.launches - before})
+    check(all(raised.values()), f"fused_rdb did not raise under autograd: {raised}")
+    check(fused_rdb.launches - before == 1, "fused_rdb under no_grad did not launch once")
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -418,15 +466,31 @@ def one_hot_probes():
                                ("b_identity", code(128, 64), scaled))]
 
 
+def conv_one_hot_probe(shape, cout: int, tap: int):
+    """An exact probe of conv3x3's window and weight layouts, (x, w): x coded
+    by position (7 * flat index mod 61: integers bf16 holds exactly; a chunk
+    of 8 channels or a pixel apart always differ) and w zero but for tap
+    ``tap`` = (dy, dx), where output channel o takes input channel o % Cin
+    scaled by 2^(o // Cin).  The output is x shifted by the tap, exactly; a
+    wrong swizzle, halo, tap or weight row shows as a permutation."""
+    b, h, width, cin = shape
+    x = (torch.arange(b * h * width * cin, device="cuda") * 7 % 61).reshape(shape)
+    w = torch.zeros(3, 3, cin, cout, device="cuda")
+    o = torch.arange(cout, device="cuda")
+    w[tap // 3, tap % 3, o % cin, o] = 2.0 ** (o // cin).float()
+    return x.to(torch.bfloat16), w
+
+
 def check_tool_kernels() -> None:
     """K2-K4 against their plain versions on the card, at every shape the
     tool's run gives them (its default conv, the five of ``--mm``), smaller
     and ragged ones, which between them take every width the kernels are
     built for: atol/rtol 2e-2 for the products, equality for the conv's copy
-    modes and mm_grid's one-hot probes, the shape alone for ``dots``."""
+    modes and the one-hot probes of mm_grid and conv3x3, the shape alone for
+    ``dots``."""
     atol, rtol = BF16_TOLERANCE
     b, h, w_, cin, cout, tile = CONV_SHAPE
-    for shape, n_out, rows in (((b, h, w_, cin), cout, tile), ((2, 64, 48, 32), 96, 16)):
+    for shape, n_out, rows in (((b, h, w_, cin), cout, tile), *CONV_EXTRA_SHAPES):
         x, w = conv_operands(shape, n_out)
         ok, err = within(conv3x3(x, w, tile=rows), conv3x3_plain(x, w))
         exact = {mode: bool(torch.equal(conv3x3(x, w, tile=rows, mode=mode),
@@ -438,6 +502,17 @@ def check_tool_kernels() -> None:
                            "max_abs_diff": err, "atol": atol, "rtol": rtol,
                            "copy_modes_equal": exact, "ok": ok})
         check(ok, f"conv3x3 disagrees with conv3x3_plain at {shape} -> {n_out}")
+    for shape, n_out, rows in CONV_PROBE_SHAPES:
+        exact = {}
+        for tap in range(9):
+            x, w = conv_one_hot_probe(shape, n_out, tap)
+            out = conv3x3(x, w, tile=rows)
+            torch.cuda.synchronize()
+            exact[f"{tap // 3}{tap % 3}"] = bool(torch.equal(out, conv3x3_plain(x, w)))
+        ok = all(exact.values())
+        emit(kernel_check={"kernel": "conv3x3", "probe": "one_hot_taps", "shape": [*shape, n_out],
+                           "tile": rows, "exact": exact, "ok": ok})
+        check(ok, f"conv3x3's one-hot probes at {shape} -> {n_out} are not exact: {exact}")
     for name, a, bm in one_hot_probes():
         out = mm_grid(a, bm)
         torch.cuda.synchronize()
@@ -569,7 +644,10 @@ def bound(flops: float, moved: float) -> dict:
 
 
 def conv_record(launches: int) -> dict:
-    """conv3x3 mode ``full`` at the tool's default shape."""
+    """conv3x3 mode ``full`` at the tool's default shape: in a host loop of
+    20 launches (in turns with the plain version), and inside a CUDA graph
+    of 20 launches (``device_ms``) beside cuDNN's ``F.conv2d`` (bf16,
+    channels_last) in the same (``library_device_ms``)."""
     b, h, w_, cin, cout, tile = CONV_SHAPE
     x, w = conv_operands((b, h, w_, cin), cout)
     w = w.to(torch.bfloat16)
@@ -577,6 +655,8 @@ def conv_record(launches: int) -> dict:
     ok, err = within(conv3x3(x, w, tile=tile), conv3x3_plain(x, w))
     check(ok, "conv3x3 disagrees with conv3x3_plain at the tool's shape")
     ms, plain_ms = in_turns(lambda: conv3x3(x, w, tile=tile), lambda: conv3x3_plain(x, w), 20)
+    library_device_ms = graph_ms(lambda: conv_exp.library_conv(x, weight), 20)
+    device_ms = graph_ms(lambda: conv3x3(x, w, tile=tile), 20)
     flops = 2 * 9 * cin * cout * b * h * w_
     moved = 2 * (x.numel() + b * h * w_ * cout + w.numel())
     return {"name": "conv3x3[bf16]", "route": "cuda",
@@ -584,8 +664,9 @@ def conv_record(launches: int) -> dict:
             "replaces": "tools/pallas_conv_exp.py:86", "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, **bound(flops, moved),
             "library_ms": time_ms(lambda: conv_exp.library_conv(x, weight), 20),
+            "device_ms": device_ms, "library_device_ms": library_device_ms,
             "shape": [b, h, w_, cin, cout], "mode": "full", "tile": tile,
-            "tflops": flops / ms / 1e9}
+            "tflops": flops / ms / 1e9, "device_tflops": flops / device_ms / 1e9}
 
 
 def mm_record(kind: str, m: int, k: int, n: int, launches: int) -> dict:
@@ -669,6 +750,7 @@ def main() -> int:
     eval_launches = drive_eval(tree, main_shapes)
     check_niqe()
     check_kernels(state_dict, main_shapes)
+    check_autograd_guard(state_dict)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)

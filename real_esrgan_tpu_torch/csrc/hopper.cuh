@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX, in the style of
-// mma_tile.cuh: mbarriers, 2-D TMA tensor loads and stores, wgmma with its
-// shared-memory matrix descriptors, and the host-side encoding of a TMA
-// tensor map.  mm_probe.cu's mm_grid kernel is built on them.
+// mma_tile.cuh: mbarriers, 2-D and 4-D TMA tensor loads and stores, wgmma
+// with its shared-memory matrix descriptors (A from shared memory or from
+// registers), ldmatrix, and the host-side encoding of TMA tensor maps.
+// mm_probe.cu's mm_grid kernel and conv3x3.cu are built on them.
 //
 // Layout contract (what the descriptors below assume): every operand tile in
 // shared memory is written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, as boxes of
@@ -18,10 +19,15 @@
 //   first box; SBO = 1024 (from one group of eight k rows to the next),
 //   LBO = the bytes from one 64-column box to the next (8192).
 //
+// * A K-major B (row-major (n, k), read without the transpose bit, as
+//   conv3x3.cu's weights): one box is N rows x 64 k, laid out as A's box;
+//   the k16 slice kk starts 32 kk bytes into it, SBO = 1024, LBO not read.
+//
 // * An output tile stored with TMA from shared memory is laid out the same
 //   way: 64-column boxes of 64 rows x 128 bytes, 128-byte swizzled.
 //
-// tests/test_torch_mm_plan.py holds a numpy model of this addressing.
+// tests/test_torch_mm_plan.py and tests/test_torch_conv_plan.py hold numpy
+// models of this addressing.
 
 #pragma once
 
@@ -118,6 +124,27 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void*
                : "memory");
 }
 
+// the 4-D forms, coordinates (c0 innermost .. c3); coordinates may be
+// negative, and elements outside the tensor load as zeros (and count) or are
+// not stored
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
@@ -156,6 +183,25 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for registers an asynchronous wgmma reads (its A fragments):
+// keeps them live, unchanged, up to this point
+__device__ __forceinline__ void fence_fragment(uint32_t (&a)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// Four 8 x 8 bf16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8, and receives in a[i] row l / 4 of matrix i,
+// columns 2 (l % 4) and 2 (l % 4) + 1.  With matrices (rows 0-7, k 0-7),
+// (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15) that is a
+// warp's 16 x 16 slice of wgmma's A fragment (and mma.sync's m16n8k16 A).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t address) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(address)
+               : "memory");
 }
 
 constexpr uint64_t kLayoutSwizzle128B = 1;  // descriptor bits 62-63
@@ -297,6 +343,74 @@ struct Wgmma<256> {
         : "l"(desc_a), "l"(desc_b), "r"(scale_d));
   }
 };
+
+// d (64 x N f32) = a (64 x 16, this warp's rows 16 (warp % 4) .. + 15 in
+// registers, as ldmatrix_x4 loads them) @ b (16 x N, K-major: the N rows of
+// 16 k each, no transpose bit) + (scale_d ? d : 0).  The accumulator layout
+// is Wgmma's.  A's registers must stay unchanged until the wgmma is waited
+// for, and a wgmma_fence must separate their writing from the wgmma.
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<32> {
+  __device__ __forceinline__ static void mma(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaRS<96> {
+  __device__ __forceinline__ static void mma(float (&d)[48], const uint32_t (&a)[4],
+                                             uint64_t desc_b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18,"
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, {%48, %49, %50, %51}, %52, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+  }
+};
+
 // ---- host: TMA tensor maps ----------------------------------------------
 
 // Added to a CUresult of cuTensorMapEncodeTiled, so that it cannot be taken
@@ -348,6 +462,26 @@ inline int encode_bf16_2d(CUtensorMap* map, const void* base, uint64_t rows, uin
   const CUresult result =
       encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return result == CUDA_SUCCESS ? 0 : kEncodeErrorBase + static_cast<int>(result);
+}
+
+// A tensor map of a contiguous bf16 tensor of dims[0] (innermost) x ... x
+// dims[3] elements, read and written in boxes of box[0] x ... x box[3] with
+// the given swizzle; a box may reach past the tensor, which loads zeros
+// there and stores nothing.  Returns as encode_bf16_2d.
+inline int encode_bf16_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                          const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode;
+  const int err = tensor_map_encoder(&encode);
+  if (err != 0) return err;
+  const cuuint64_t size[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t strides[3] = {dims[0] * 2, dims[0] * dims[1] * 2, dims[0] * dims[1] * dims[2] * 2};
+  const cuuint32_t boxes[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult result =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), size, strides,
+             boxes, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return result == CUDA_SUCCESS ? 0 : kEncodeErrorBase + static_cast<int>(result);
 }

@@ -1,5 +1,5 @@
-// Warp-level bf16 tensor-core tile product shared by conv3x3.cu,
-// mm_probe.cu and fused_rdb.cu: mma.sync m16n8k16 (bf16 operands, f32
+// Warp-level bf16 tensor-core tile product shared by mm_probe.cu
+// (mm_resident) and fused_rdb.cu: mma.sync m16n8k16 (bf16 operands, f32
 // accumulators in registers) fed by ldmatrix from shared memory.
 //
 // One warp owns a tile of 32 rows x (16 * NF) columns of the block's output:

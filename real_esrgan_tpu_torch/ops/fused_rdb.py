@@ -199,11 +199,19 @@ def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> torch.Tensor:
     goes through ``rdb_plain``; a CUDA tensor through its dtype's CUDA kernel
     (bfloat16: tensor cores; float32: CUDA cores), which adds one to
     ``fused_rdb.launches``, or raises: there is no fallback.
+
+    The kernel has no backward.  On a CUDA tensor with autograd on and
+    ``x`` or a packed tensor requiring grad, it raises rather than return an
+    output cut from the graph.
     """
     if x.device.type == "cpu":
         return rdb_plain(x, packed)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rdb runs on cpu or cuda, not {x.device}")
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in packed)):
+        raise RuntimeError("fused_rdb: the CUDA kernel has no backward, so its output would "
+                           "carry no gradient; train with Generator(packed=False) or the "
+                           "plain math (rdb_plain), or run the forward under torch.no_grad()")
     _check(x, packed)
     lib = _library()
     b, h, w, _ = x.shape

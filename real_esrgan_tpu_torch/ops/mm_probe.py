@@ -23,7 +23,7 @@ import ctypes
 import torch
 
 from real_esrgan_tpu_torch.ops import _build
-from real_esrgan_tpu_torch.ops.conv3x3 import SMEM_LIMIT
+from real_esrgan_tpu_torch.ops.conv3x3 import ENCODE_ERROR_BASE, SMEM_LIMIT
 from real_esrgan_tpu_torch.ops.resize import true_f32
 
 BLOCK_ROWS = 64  # rows of the output one block computes, as kBM in csrc/mm_probe.cu
@@ -40,7 +40,6 @@ GRID_MAX_STAGES = 6
 GRID_ALIGN = 1024       # the 128-byte swizzle pattern repeats every 1024 bytes
 GRID_THREADS = 128 + 32  # one consumer warpgroup and one producer warp
 MBARRIER_BYTES = 8
-ENCODE_ERROR_BASE = 10000  # hopper::kEncodeErrorBase: + a CUresult of the tensor-map encoder
 _PLAN_KEYS = ("bn", "bk", "stages", "grid_x", "grid_y", "threads", "smem_bytes", "cluster",
               "tx_bytes")
 

@@ -33,17 +33,35 @@ def _load_params_npz(path: str) -> Dict[str, Any]:
     return tree
 
 
+def _numpy_globals() -> list:
+    """The numpy globals a numpy scalar and a numpy array unpickle through:
+    the multiarray ``scalar`` and ``_reconstruct``, ``ndarray``, ``dtype`` and
+    the numeric dtype classes, named from the installed numpy (whose
+    multiarray moved from ``numpy.core`` to ``numpy._core``)."""
+    core = getattr(np, "_core", None) or np.core
+    codes = np.typecodes["AllInteger"] + np.typecodes["AllFloat"] + "?"
+    dtype_classes = {type(np.dtype(code)) for code in codes}
+    return [core.multiarray.scalar, core.multiarray._reconstruct, np.ndarray, np.dtype,
+            *sorted(dtype_classes, key=lambda c: c.__name__)]
+
+
 def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
     """Generator weights as the port's OIHW state_dict, from either
 
     * a compact ``.npz`` snapshot (``scripts/snapshot_weights.py``), or
     * a reference ``.pth.tar``: ``ema_state_dict`` when present and
       preferred, else ``state_dict``, with the ``model.`` prefix stripped.
+
+    A ``.pth.tar`` is unpickled with ``weights_only=True``: tensors, plain
+    containers and numbers, and numpy scalars and arrays (the reference
+    saves ``best_niqe`` as a numpy scalar beside the weights; an export may
+    hold numpy arrays).  Any other class raises ``UnpicklingError``.
     """
     if path.endswith(".npz"):
         return state_dict_from_jax_params(_load_params_npz(path))
     if path.endswith((".pth.tar", ".pth", ".tar")):
-        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        with torch.serialization.safe_globals(_numpy_globals()):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(ckpt, dict) and ("state_dict" in ckpt or "ema_state_dict" in ckpt):
             key = "ema_state_dict" if (prefer_ema and "ema_state_dict" in ckpt) \
                 else "state_dict"

@@ -2,9 +2,11 @@
 port's copy of real_esrgan_tpu/utils/imgio.py.
 
 cv2 is imported only inside the functions that need it.  ``read_png`` and
-``write_png`` need only zlib and numpy (8-bit RGB, non-interlaced), so a
-machine without cv2 or PIL can still read and write the usual PNG; the
-``*_image_rgb`` helpers use them for ``.png`` paths.
+``write_png`` need only zlib and numpy, so a machine without cv2 or PIL can
+still read the usual PNG (grey, palette, RGB, with or without alpha, 8 or
+16 bits, non-interlaced) and write an 8-bit RGB one.  ``load_image_rgb``
+reads through cv2 where it imports, else a PNG through ``read_png``;
+``save_image_rgb`` writes a ``.png`` through ``write_png``.
 """
 
 from __future__ import annotations
@@ -17,57 +19,110 @@ import zlib
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# samples a pixel for each PNG colour type, and the bit depths read_png takes
+_PNG_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (8, 16), 2: (8, 16), 3: (8,), 4: (8, 16), 6: (8, 16)}
 
 
-def _paeth(a: int, b: int, c: int) -> int:
-    p = a + b - c
-    pa, pb, pc = abs(p - a), abs(p - b), abs(p - c)
-    if pa <= pb and pa <= pc:
-        return a
-    return b if pb <= pc else c
+def _diagonal_view(a: np.ndarray, height: int, width: int) -> np.ndarray:
+    """The (height, width, k) view of a (D, H, k) array whose element (y, x)
+    is a[y + x, y]: the image read along its anti-diagonals."""
+    st = a.strides
+    return np.lib.stride_tricks.as_strided(a, (height, width, a.shape[2]),
+                                           (st[0] + st[1], st[0], st[2]))
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-scanline PNG filters (types 0-4)."""
-    out = np.zeros((height, stride), np.uint8)
-    prev = np.zeros(stride, np.uint8)
-    pos = 0
-    for y in range(height):
-        ftype = raw[pos]
-        line = np.frombuffer(raw, np.uint8, stride, pos + 1)
-        pos += stride + 1
+def _unfilter_rows(filt: np.ndarray, types: np.ndarray) -> np.ndarray:
+    """Filters None (0), Sub (1) and Up (2) only: each run of rows of one
+    type at once, Sub as a running sum along the rows, Up down them."""
+    height = filt.shape[0]
+    p = np.zeros((height + 1,) + filt.shape[1:], np.int16)  # a zero row above the image
+    r0 = 0
+    while r0 < height:
+        ftype, r1 = int(types[r0]), r0 + 1
+        while r1 < height and types[r1] == ftype:
+            r1 += 1
+        block = filt[r0:r1]
         if ftype == 0:
-            cur = line.copy()
-        elif ftype == 1:  # Sub: running sum per channel, mod 256
-            cur = np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint64)
-            cur = (cur % 256).astype(np.uint8).reshape(-1)
-        elif ftype == 2:  # Up
-            cur = line + prev
-        elif ftype in (3, 4):  # Average, Paeth: sequential along the row
-            cur = bytearray(line.tobytes())
-            up = prev.tobytes()
-            for i in range(stride):
-                left = cur[i - bpp] if i >= bpp else 0
-                if ftype == 3:
-                    pred = (left + up[i]) >> 1
-                else:
-                    pred = _paeth(left, up[i], up[i - bpp] if i >= bpp else 0)
-                cur[i] = (cur[i] + pred) & 0xFF
-            cur = np.frombuffer(bytes(cur), np.uint8)
+            p[r0 + 1:r1 + 1] = block
+        elif ftype == 1:
+            p[r0 + 1:r1 + 1] = np.cumsum(block, axis=1, dtype=np.int32) & 0xFF
         else:
-            raise ValueError(f"bad PNG filter type {ftype}")
-        out[y] = cur
-        prev = out[y]
-    return out
+            p[r0 + 1:r1 + 1] = (p[r0] + np.cumsum(block, axis=0, dtype=np.int32)) & 0xFF
+        r0 = r1
+    return p[1:]
+
+
+def _unfilter_wavefront(filt: np.ndarray, types: np.ndarray) -> np.ndarray:
+    """Every filter type, the row's type picked per pixel.
+
+    Byte lane k of pixel (y, x) depends on lane k of (y, x - 1), (y - 1, x)
+    and (y - 1, x - 1), so all pixels on one anti-diagonal d = y + x are
+    computed in one vector step: H + W - 1 steps.  The image is skewed so
+    that a diagonal is a contiguous row: ``ft[d, y]`` is the filtered pixel
+    (y, d - y), and ``ot[d + 2, y + 1]`` its output, beside a zero row
+    (y = -1) and two zero diagonals; positions with x outside the image are
+    never written and read as the zeros PNG puts left of the image."""
+    height, width, bpp = filt.shape
+    diagonals = height + width - 1
+    ft = np.zeros((diagonals, height, bpp), np.int16)
+    _diagonal_view(ft, height, width)[...] = filt
+    ot = np.zeros((diagonals + 2, height + 1, bpp), np.int16)
+    masks = [(types == t)[:, None] for t in range(5)]
+    counts = [[0] + np.cumsum(m[:, 0]).tolist() for m in masks]
+    for d in range(diagonals):
+        y0, y1 = max(0, d - width + 1), min(height - 1, d) + 1
+        a, b, c = ot[d + 1, y0 + 1:y1 + 1], ot[d + 1, y0:y1], ot[d, y0:y1]  # left, up, up-left
+        present = [counts[t][y1] > counts[t][y0] for t in range(5)]
+        preds = [0, a, b, None, None]
+        if present[3]:
+            preds[3] = (a + b) >> 1
+        if present[4]:
+            bc, ac = b - c, a - c
+            pa, pb, pc = np.abs(bc), np.abs(ac), np.abs(bc + ac)
+            preds[4] = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+        kinds = [t for t in range(5) if present[t]]
+        if len(kinds) == 1:
+            pred = preds[kinds[0]]
+        else:
+            pred = np.select([masks[t][y0:y1] for t in kinds], [preds[t] for t in kinds])
+        np.bitwise_and(ft[d, y0:y1] + pred, 0xFF, out=ot[d + 2, y0 + 1:y1 + 1])
+    return _diagonal_view(ot[2:, 1:], height, width).copy()
+
+
+def _unfilter(raw: bytes, height: int, width: int, bpp: int) -> np.ndarray:
+    """Undo the per-scanline PNG filters (types 0-4) -> (H, W, bpp) uint8.
+    Without Average (3) or Paeth (4) rows, runs of rows go at once
+    (``_unfilter_rows``); with them, an anti-diagonal wavefront
+    (``_unfilter_wavefront``)."""
+    stride = width * bpp
+    if len(raw) < height * (stride + 1):
+        raise ValueError("PNG image data is shorter than its header says")
+    data = np.frombuffer(raw, np.uint8, height * (stride + 1)).reshape(height, stride + 1)
+    types = data[:, 0]
+    if height and int(types.max()) > 4:
+        raise ValueError(f"bad PNG filter type {int(types.max())}")
+    filt = data[:, 1:].reshape(height, width, bpp).astype(np.int16)
+    if (types >= 3).any():
+        return _unfilter_wavefront(filt, types).astype(np.uint8)
+    return _unfilter_rows(filt, types).astype(np.uint8)
 
 
 def read_png(path: str) -> np.ndarray:
-    """8-bit RGB non-interlaced PNG -> (H, W, 3) uint8, with zlib and numpy."""
+    """PNG -> (H, W, 3) uint8 RGB, with zlib and numpy: what
+    ``cv2.imread(path, IMREAD_COLOR)`` gives after its BGR -> RGB flip.
+
+    Takes colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and
+    6 (RGBA) at bit depth 8, and at 16 where the type allows it.  Grey
+    becomes three equal channels, alpha is dropped (not composited), and a
+    16-bit sample keeps its high byte, as cv2 maps it.  Anything else
+    (interlaced, bit depth 1, 2 or 4) raises a ``ValueError`` that names
+    the colour type, bit depth and interlace."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
-    pos, idat, header = 8, [], None
+    pos, idat, header, palette = 8, [], None, None
     while pos < len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         kind = data[pos + 4:pos + 8]
@@ -75,6 +130,8 @@ def read_png(path: str) -> np.ndarray:
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
@@ -82,11 +139,21 @@ def read_png(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"PNG without IHDR: {path}")
     width, height, depth, color, _, _, interlace = header
-    if depth != 8 or color != 2 or interlace != 0:
-        raise ValueError(f"{path}: read_png takes 8-bit RGB non-interlaced PNGs "
-                         f"(got depth {depth}, color type {color}, interlace {interlace})")
-    rows = _unfilter(zlib.decompress(b"".join(idat)), height, width * 3, 3)
-    return rows.reshape(height, width, 3)
+    if depth not in _PNG_DEPTHS.get(color, ()) or interlace != 0:
+        raise ValueError(f"{path}: read_png takes non-interlaced PNGs of colour type 0, 2, 4 "
+                         f"or 6 at bit depth 8 or 16, or 3 at bit depth 8; got colour type "
+                         f"{color}, bit depth {depth}, interlace {interlace}")
+    samples = _PNG_SAMPLES[color]
+    pixels = _unfilter(zlib.decompress(b"".join(idat)), height, width, samples * depth // 8)
+    if depth == 16:
+        pixels = pixels[..., 0::2]  # the high byte of each big-endian sample
+    if color == 3:
+        if palette is None or (pixels.size and int(pixels.max()) >= len(palette)):
+            raise ValueError(f"{path}: palette index outside the PLTE chunk")
+        return palette[pixels[..., 0]]
+    if color in (0, 4):
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    return np.ascontiguousarray(pixels[..., :3])
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -109,11 +176,15 @@ def write_png(path: str, image: np.ndarray) -> None:
 
 
 def load_image_rgb(path: str) -> np.ndarray:
-    """Read an image file -> (H, W, 3) float32 RGB in [0, 1]."""
-    if path.lower().endswith(".png"):
-        return read_png(path).astype(np.float32) / 255.0
-    import cv2
-
+    """Read an image file -> (H, W, 3) float32 RGB in [0, 1], through cv2
+    where it imports, as the JAX package does; without cv2, a PNG through
+    ``read_png``, which returns what cv2 would."""
+    try:
+        import cv2
+    except ImportError:
+        if path.lower().endswith(".png"):
+            return read_png(path).astype(np.float32) / 255.0
+        raise
     bgr = cv2.imread(path, cv2.IMREAD_COLOR)
     if bgr is None:
         raise FileNotFoundError(f"Cannot read image: {path}")

@@ -17,7 +17,10 @@ import os
 import pytest
 import torch
 
-from real_esrgan_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_plain
+from real_esrgan_tpu_torch.models import Generator
+from real_esrgan_tpu_torch.ops.conv3x3 import (
+    built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
+)
 from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb_plain
 from real_esrgan_tpu_torch.ops.mm_probe import (
     built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
@@ -107,8 +110,28 @@ def test_fused_rdb_rejects_what_the_kernel_does_not_take(cuda):
         fused_rdb(x, [packed[0], shifted] + packed[2:])  # weight off a 16-byte boundary
 
 
-CONV_SHAPES = [((8, 256, 256, 64), 192, 32), ((2, 16, 32, 32), 96, 8), ((1, 64, 48, 64), 64, 16)]
-CONV_IDS = ["tool_default", "small", "three_col_tiles"]
+def test_fused_rdb_raises_under_autograd(cuda):
+    """The kernel has no backward: with autograd on, an input or a packed
+    tensor that requires grad raises, and a Generator(packed=True) forward
+    with grad on (its packed weights require grad) raises too, instead of
+    giving the trunk's parameters no gradient."""
+    packed = _packed(torch.float32, cuda)
+    x = torch.zeros(1, 16, 16, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_rdb(x.clone().requires_grad_(), packed)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_rdb(x, [packed[0].clone().requires_grad_()] + packed[1:])
+    model = Generator(num_rrdb=1, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(torch.rand(1, 16, 16, 3, device=cuda))
+    with torch.no_grad():
+        assert fused_rdb(x.clone().requires_grad_(), packed).shape == x.shape
+        assert model(torch.rand(1, 16, 16, 3, device=cuda)).shape == (1, 64, 64, 3)
+
+
+CONV_SHAPES = [((8, 256, 256, 64), 192, 32), ((2, 16, 32, 32), 96, 8), ((1, 64, 48, 64), 64, 16),
+               ((2, 64, 48, 32), 96, 16)]
+CONV_IDS = ["tool_default", "small", "three_col_tiles", "cin32_w48"]
 
 
 def _conv_operands(cuda, shape, cout):
@@ -135,6 +158,44 @@ def test_conv3x3_patch_and_dma_equal_plain(cuda, shape, cout, tile, mode):
     out = conv3x3(x, w, tile=tile, mode=mode)
     torch.cuda.synchronize()
     assert torch.equal(out, conv3x3_plain(x, w, mode))
+
+
+@pytest.mark.parametrize("shape,cout,tile", CONV_SHAPES, ids=CONV_IDS)
+def test_conv3x3_launches_at_its_plan(cuda, shape, cout, tile):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for count in (sms, 132):
+        assert built_conv3x3_plan(*shape, cout, tile, count) == \
+            conv3x3_plan(*shape, cout, tile, count)
+
+
+def conv_one_hot_probe(shape, cout, tap, device):
+    """An exact probe of conv3x3's window and weight layouts, (x, w): x
+    coded by position (7 * flat index mod 61: integers bf16 holds exactly,
+    a chunk of 8 channels or a pixel apart always differ) and w zero but
+    for tap ``tap`` = (dy, dx), where output channel o takes input channel
+    o % Cin scaled by 2^(o // Cin).  The output is then x shifted by the
+    tap, exactly; a wrong swizzle, halo, tap or weight row shows as a
+    permutation of the codes."""
+    b, h, width, cin = shape
+    x = (torch.arange(b * h * width * cin, device=device) * 7 % 61).reshape(shape)
+    w = torch.zeros(3, 3, cin, cout, device=device)
+    o = torch.arange(cout, device=device)
+    w[tap // 3, tap % 3, o % cin, o] = 2.0 ** (o // cin).float()
+    return x.to(torch.bfloat16), w
+
+
+CONV_PROBE_SHAPES = [((1, 64, 48, 64), 64, 16), ((2, 16, 32, 32), 96, 8),
+                     ((1, 16, 32, 64), 192, 8)]
+
+
+@pytest.mark.parametrize("tap", range(9), ids=[f"tap{dy}{dx}" for dy in range(3) for dx in range(3)])
+@pytest.mark.parametrize("shape,cout,tile", CONV_PROBE_SHAPES,
+                         ids=["64to64", "cin32_to96", "64to192_two_slices"])
+def test_conv3x3_one_hot_probes_are_exact(cuda, shape, cout, tile, tap):
+    x, w = conv_one_hot_probe(shape, cout, tap, cuda)
+    out = conv3x3(x, w, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(out, conv3x3_plain(x, w))
 
 
 def test_conv3x3_dots_has_the_output_shape(cuda):

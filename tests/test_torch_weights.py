@@ -3,6 +3,7 @@ train/checkpoint.py) against the JAX package's loaders: every tensor must
 equal the JAX tree after HWIO -> OIHW, exactly."""
 
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -104,3 +105,51 @@ def test_orbax_directory_raises_with_the_conversion_route(tmp_path):
         load_generator_params(str(tmp_path))
     with pytest.raises(ValueError, match="unrecognized"):
         load_generator_params(str(tmp_path / "weights.bin"))
+
+
+def _assert_same_as_jax(path, sd):
+    """The port's load of ``path`` equals the JAX loader's tree, tensor for
+    tensor after HWIO -> OIHW, and equals ``sd``."""
+    loaded = load_generator_params(path)
+    flat = dict(_flatten(jax_load(path)))
+    assert len(flat) == len(loaded) == len(sd)
+    for key, value in flat.items():
+        port = loaded[_port_key(key)].numpy()
+        want = np.transpose(value, (3, 2, 0, 1)) if value.ndim == 4 else value
+        assert port.dtype == np.float32
+        np.testing.assert_array_equal(port, want, err_msg=key)
+    for k, v in sd.items():
+        np.testing.assert_array_equal(loaded[k].numpy(), v, err_msg=k)
+
+
+def test_pth_tar_with_a_numpy_scalar_beside_the_weights(tmp_path):
+    """The reference saves ``best_niqe`` (a numpy float64) beside the
+    weights; the weights-only unpickler must take it."""
+    _, sd = _small_jax_tree()
+    path = str(tmp_path / "g_best.pth.tar")
+    torch.save({"epoch": 1, "best_niqe": np.float64(3.9),
+                "ema_state_dict": {"model." + k: torch.from_numpy(v) for k, v in sd.items()}},
+               path)
+    _assert_same_as_jax(path, sd)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float16], ids=["f32", "f16"])
+def test_pth_tar_with_an_ema_state_dict_of_numpy_arrays(tmp_path, dtype):
+    _, sd = _small_jax_tree()
+    sd = {k: v.astype(dtype).astype(np.float32) for k, v in sd.items()}  # values dtype holds
+    path = str(tmp_path / "g.pth.tar")
+    torch.save({"ema_state_dict": {k: v.astype(dtype) for k, v in sd.items()}}, path)
+    _assert_same_as_jax(path, sd)
+
+
+class NotWeights:
+    """A class no weights file holds: the weights-only unpickler refuses it."""
+
+
+def test_pth_tar_with_an_arbitrary_class_still_raises(tmp_path):
+    _, sd = _small_jax_tree()
+    path = str(tmp_path / "g.pth.tar")
+    torch.save({"best_niqe": np.float64(3.9), "extra": NotWeights(),
+                "ema_state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, path)
+    with pytest.raises(pickle.UnpicklingError):
+        load_generator_params(path)

@@ -8,8 +8,9 @@
    with nvcc (one process a source, all at once), printing each source's
    build seconds, registers, spills and shared memory, the tensor-core, TMA,
    mbarrier and shared-memory instructions of each kernel as ``cuobjdump
-   -sass`` shows them (every ``mm_grid`` and ``conv3x3`` kernel must have
-   ``HGMMA`` and ``UTMALDG`` and no ``HMMA``, and no build may warn C7520,
+   -sass`` shows them (both RDB kernels, bf16 and the f32 split, must have
+   ``HMMA`` and no ``LDL``/``STL``; every ``mm_grid`` and ``conv3x3`` kernel
+   ``HGMMA`` and ``UTMALDG`` and no ``HMMA``; no build may warn C7520,
    serialised ``wgmma``), the RDB kernels' block plan (``rdb_plan``),
    ``mm_grid``'s at the gate's shapes (``mm_grid_plan``) and ``conv3x3``'s
    at the tool's default shape (``conv3x3_plan``), each beside what the
@@ -19,7 +20,8 @@
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
    the ragged crop the committed JAX golden output covers), with every
    kernel's launch count set to 0 just before and read just after, and the
-   shape of every input the RDB kernel gets recorded;
+   shape of every input the RDB kernel gets recorded; one more float32
+   forward of the test image keeps the inputs of three RDBs of the trunk;
 4. checks the outputs: finite, in [0, 1], the f32 crop within 1e-4 of the
    JAX golden output, the bf16 crop's PSNR against it, and the tiled image's
    interior seam error against a whole-image forward; profiles one warm
@@ -40,7 +42,9 @@
 7. holds the RDB kernel against its plain PyTorch version on the card, with
    the trained weights of several RDBs, at every shape the serving and the
    evaluation path gave it in each dtype, a ragged batch, a block smaller
-   than a tile and a batch of three ragged images, and checks that it
+   than a tile and a batch of three ragged images, and in float32 on the
+   real trunk activations kept in step 3 (|x| up to about 57, where the
+   kernel's three bf16 products have the least room), and checks that it
    raises under autograd (it has no backward);
 8. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
@@ -76,7 +80,7 @@ from real_esrgan_tpu_torch.ops.conv3x3 import (
     built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
 )
 from real_esrgan_tpu_torch.ops.fused_rdb import (
-    built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan,
+    built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan, split_rdb_weights,
 )
 from real_esrgan_tpu_torch.ops.mm_probe import (
     built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
@@ -101,15 +105,20 @@ RDBS_PER_FORWARD = 69  # 23 RRDBs x 3 RDBs
 # 2 * 9 * (64*32 + 96*32 + 128*32 + 160*32 + 192*64) FLOP per pixel
 RDB_FLOP_PER_PIXEL = 479_232
 RDB_WEIGHTS = RDB_FLOP_PER_PIXEL // 2
-# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate (K1 bf16 runs on
-# the tensor cores), f32 CUDA-core rate (K1 f32 runs on CUDA cores), HBM3 rate.
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate, f32 rate on the
+# CUDA cores, HBM3 rate.  K1 runs on the tensor cores in both dtypes: bf16 as
+# it is, f32 as three bf16 products (hi*hi + hi*lo + lo*hi), so its operation
+# bound is PRODUCTS x its FLOPs at the bf16 rate; the f32 record gives beside
+# it the bound of the same FLOPs on the CUDA cores.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_CUDA_CORE_FLOPS = 67e12
+PRODUCTS = {torch.bfloat16: 1, torch.float32: 3}
 PEAK_BYTES = 3.35e12
 CHECK_RDBS = ("trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3")
 TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}  # atol, rtol
 DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K1's kernels in csrc/fused_rdb.cu, as the profiler names them
-RDB_KERNEL_NAMES = ("rdb_bf16_kernel", "rdb_f32_kernel")
+RDB_KERNEL_NAMES = ("rdb_bf16_kernel", "rdb_f32_split_kernel")
 # the kernels sass_counts names, by the name in their mangled symbols
 KERNEL_NAMES = RDB_KERNEL_NAMES + ("mm_grid_kernel", "mm_resident_kernel", "conv3x3_kernel")
 # SASS instructions counted per kernel: tensor cores (HMMA: mma.sync; HGMMA:
@@ -206,6 +215,12 @@ def build_kernels() -> None:
     emit(build_wall_seconds=round(wall, 3))
     sass = {name: sass_counts(name) for name in KERNEL_SOURCES}
     emit(sass=sass)
+    if sass["fused_rdb"]:
+        check(sorted(sass["fused_rdb"]) == sorted(RDB_KERNEL_NAMES),
+              f"fused_rdb.cu builds {sorted(sass['fused_rdb'])}, not {RDB_KERNEL_NAMES}")
+    for kernel, ops in sass["fused_rdb"].items():
+        check(ops["HMMA"] > 0 and ops["LDL"] + ops["STL"] == 0,
+              f"{kernel} is not a tensor-core kernel free of local memory: {ops}")
     hopper = {k: v for name in ("mm_probe", "conv3x3") for k, v in sass[name].items()
               if k.startswith(("mm_grid_kernel", "conv3x3_kernel"))}
     built = sorted(k.split("<")[0] for k in hopper)
@@ -216,8 +231,12 @@ def build_kernels() -> None:
               f"{kernel} is not a TMA + wgmma kernel: {ops}")
         check(not kernel.startswith("conv3x3") or ops["LDL"] + ops["STL"] == 0,
               f"{kernel} uses local memory: {ops}")
-    emit(fused_rdb_blocks={DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)}
-                           for d in TOLERANCE})
+    rdb_blocks = {DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)} for d in TOLERANCE}
+    emit(fused_rdb_blocks=rdb_blocks)
+    for name, plan in rdb_blocks.items():
+        check(plan["built"] == {"tile": plan["tile"], "smem_bytes": plan["smem_bytes"]},
+              f"fused_rdb {name}: built {plan['built']}, rdb_plan tile {plan['tile']}, "
+              f"smem_bytes {plan['smem_bytes']}")
     blocks = {f"{m}x{k}x{n}": {"plan": mm_grid_plan(m, k, n), "built": built_mm_grid_plan(m, k, n)}
               for m, k, n in conv_exp.GATE_SHAPES}
     emit(mm_grid_blocks=blocks)
@@ -245,6 +264,48 @@ def record_rdb_shapes(shapes: dict):
     return torch.nn.modules.module.register_module_forward_pre_hook(hook)
 
 
+def rdb_split(packed):
+    """The split weights the f32 kernel reads, or None for bf16."""
+    return split_rdb_weights(packed) if packed[0].dtype == torch.float32 else None
+
+
+def capture_trunk_inputs(pipe: SRPipeline, image: np.ndarray) -> dict:
+    """The NHWC input of each of the 69 RDBs in one forward of ``image``."""
+    inputs, hooks = {}, []
+    for name, module in pipe.model.named_modules():
+        if isinstance(module, ResidualDenseBlock):
+            def keep(module, args, name=name):
+                inputs[name] = args[0].permute(0, 2, 3, 1).contiguous().clone()
+            hooks.append(module.register_forward_pre_hook(keep))
+    pipe.apply(torch.from_numpy(image)[None].cuda())
+    for hook in hooks:
+        hook.remove()
+    check(len(inputs) == RDBS_PER_FORWARD, f"kept the inputs of {len(inputs)} RDBs")
+    return inputs
+
+
+def check_trunk_activations(state_dict, inputs: dict) -> None:
+    """K1 f32 against rdb_plain on the real inputs of every RDB of the f32
+    tree forward (|x| up to about 58): the split's 16 bits have the least
+    room there, and N(0, 0.5^2) never reaches it.  A line for each of
+    CHECK_RDBS, and one for the worst of all 69."""
+    atol, rtol = TOLERANCE[torch.float32]
+    worst = {"max_abs_diff": -1.0}
+    for name, x in inputs.items():
+        packed = rdb_pack(state_dict, name, torch.float32)
+        ok, err = within(fused_rdb(x, packed, rdb_split(packed)), rdb_plain(x, packed),
+                         TOLERANCE[torch.float32])
+        line = {"dtype": "f32", "rdb": name, "shape": list(x.shape),
+                "max_abs_x": x.abs().max().item(), "max_abs_diff": err, "atol": atol,
+                "rtol": rtol, "ok": ok}
+        if name in CHECK_RDBS:
+            emit(k1_trunk_check=line)
+        if err > worst["max_abs_diff"]:
+            worst = line
+        check(ok, f"fused_rdb f32 {name} disagrees with rdb_plain on the trunk's activations: {err}")
+    emit(k1_trunk_worst={"rdbs": len(inputs), **worst})
+
+
 def check_kernels(state_dict, main_shapes: dict) -> None:
     """K1 against rdb_plain on the card, trained weights, N(0, 0.5^2) inputs,
     at every shape the main paths gave it in each dtype and K1_EXTRA_SHAPES."""
@@ -252,9 +313,10 @@ def check_kernels(state_dict, main_shapes: dict) -> None:
     for dtype, (atol, rtol) in TOLERANCE.items():
         for name in CHECK_RDBS:
             packed = rdb_pack(state_dict, name, dtype)
+            split = rdb_split(packed)
             for shape in sorted(main_shapes[dtype] | K1_EXTRA_SHAPES):
                 x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
-                out = fused_rdb(x, packed).float()
+                out = fused_rdb(x, packed, split).float()
                 ref = rdb_plain(x, packed).float()
                 torch.cuda.synchronize()
                 diff = (out - ref).abs()
@@ -407,32 +469,43 @@ def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
     again inside a CUDA graph of 10 launches (``device_ms``,
     ``plain_device_ms``: the plain version's 15 cuDNN convolutions and
     elementwise passes without the host's gaps between them), and its bound,
-    the larger of FLOPs over the peak rate and bytes over HBM's rate."""
+    the larger of its tensor-core FLOPs (PRODUCTS x the RDB's) over the bf16
+    rate and bytes over HBM's rate.  f32 adds ``cuda_core_bound_ms``, the
+    RDB's FLOPs over the CUDA cores' f32 rate, and ``device_tc_tflops``, the
+    tensor-core FLOPs a second.  The f32 weights are split before the
+    timing, as the model splits them once a pack."""
     shape = (1, 256, 512, 64)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
     packed = rdb_pack(state_dict, "trunk.11.rdb2", dtype)
-    out, ref = fused_rdb(x, packed).float(), rdb_plain(x, packed).float()
+    split = rdb_split(packed)
+    out, ref = fused_rdb(x, packed, split).float(), rdb_plain(x, packed).float()
     atol, rtol = TOLERANCE[dtype]
     check(bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()),
           f"fused_rdb {DTYPE_NAME[dtype]} disagrees with rdb_plain at {shape}")
     err = (out - ref).abs().max().item()
-    ms, plain_ms = in_turns(lambda: fused_rdb(x, packed), lambda: rdb_plain(x, packed), 10)
-    plain_device_ms = graph_ms(lambda: rdb_plain(x, packed), 10)
-    device_ms = graph_ms(lambda: fused_rdb(x, packed), 10)
+    kernel, plain = (lambda: fused_rdb(x, packed, split)), (lambda: rdb_plain(x, packed))
+    ms, plain_ms = in_turns(kernel, plain, 10)
+    plain_device_ms = graph_ms(plain, 10)
+    device_ms = graph_ms(kernel, 10)
     pixels = shape[0] * shape[1] * shape[2]
     flops = RDB_FLOP_PER_PIXEL * pixels
     moved = (2 * pixels * 64 + RDB_WEIGHTS) * x.element_size() + 5 * 64 * 4
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype] * 1e3, moved / PEAK_BYTES * 1e3
-    return {"name": f"fused_rdb[{DTYPE_NAME[dtype]}]", "route": "cuda",
-            "source": "real_esrgan_tpu_torch/csrc/fused_rdb.cu",
-            "replaces": "real_esrgan_tpu/ops/pallas_rdb.py:188",
-            "launches": launches, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None, "device_ms": device_ms, "plain_device_ms": plain_device_ms,
-            "shape": list(shape), "tflops": flops / ms / 1e9,
-            "device_tflops": flops / device_ms / 1e9}
+    t_ops = PRODUCTS[dtype] * flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = moved / PEAK_BYTES * 1e3
+    record = {"name": f"fused_rdb[{DTYPE_NAME[dtype]}]", "route": "cuda",
+              "source": "real_esrgan_tpu_torch/csrc/fused_rdb.cu",
+              "replaces": "real_esrgan_tpu/ops/pallas_rdb.py:188",
+              "launches": launches, "max_abs_err": err, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+              "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+              "library_ms": None, "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+              "shape": list(shape), "products": PRODUCTS[dtype], "tflops": flops / ms / 1e9,
+              "device_tflops": flops / device_ms / 1e9}
+    if dtype == torch.float32:
+        record.update(cuda_core_bound_ms=flops / PEAK_F32_CUDA_CORE_FLOPS * 1e3,
+                      device_tc_tflops=PRODUCTS[dtype] * flops / device_ms / 1e9)
+    return record
 
 
 def within(out: torch.Tensor, ref: torch.Tensor, tolerance=BF16_TOLERANCE):
@@ -639,7 +712,7 @@ def check_niqe() -> None:
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS[torch.bfloat16] * 1e3, moved / PEAK_BYTES * 1e3
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
@@ -732,6 +805,8 @@ def main() -> int:
                          "shapes": [list(s) for s in sorted(main_shapes[dtype])]})
         profile = profile_forward(pipe, tree)
         emit(profile={"dtype": DTYPE_NAME[dtype], "request": "tree forward", **profile})
+        if dtype == torch.float32:
+            trunk_inputs = capture_trunk_inputs(pipe, tree)
         check("device_busy_ms" not in profile or profile["fused_rdb_ms"] > 0,
               f"the {DTYPE_NAME[dtype]} profile names no kernel of {RDB_KERNEL_NAMES}")
         if dtype == torch.bfloat16:
@@ -750,6 +825,8 @@ def main() -> int:
     eval_launches = drive_eval(tree, main_shapes)
     check_niqe()
     check_kernels(state_dict, main_shapes)
+    check_trunk_activations(state_dict, trunk_inputs)
+    del trunk_inputs
     check_autograd_guard(state_dict)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())

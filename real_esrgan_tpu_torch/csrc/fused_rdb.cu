@@ -1,5 +1,5 @@
-// Fused ResidualDenseBlock forward for Hopper (sm_90a): bf16 on the tensor
-// cores, f32 on CUDA cores.
+// Fused ResidualDenseBlock forward for Hopper (sm_90a) on the tensor cores:
+// bf16 as it is, f32 as three bf16 products (hi*hi + hi*lo + lo*hi).
 //
 // Replaces the Pallas TPU kernel real_esrgan_tpu/ops/pallas_rdb.py::fused_rdb
 // (pl.pallas_call at pallas_rdb.py:188).  One launch computes one whole RDB
@@ -12,34 +12,57 @@
 // Bound: operations.  One RDB costs 2*9*(64*32 + 96*32 + 128*32 + 160*32 +
 // 192*64) = 479,232 FLOP per pixel against 2 * 64 * sizeof(T) bytes per pixel
 // of device-memory traffic (x read once, out written once), about 1,900 FLOP
-// per byte in bf16, far above the card's 295.  The halo recompute adds about
-// 1.34x (bf16, T=16) and 1.77x (f32, T=8) to the FLOPs actually executed.
+// per byte in bf16 and 940 in f32, far above the card's 295.  f32 issues
+// three bf16 products for each of its FLOPs: 1,437,696 tensor-core FLOP per
+// pixel, 3x bf16's bound.  The halo recompute adds about 1.34x (bf16, T=16)
+// and 1.77x (f32, T=8) to the FLOPs actually executed.
 //
-// bf16 (rdb_bf16_kernel): each of the five stages is an implicit GEMM on
-// mma.sync m16n8k16 fed by ldmatrix (mma_tile.cuh).  M is the stage's region
-// of pixels (24^2, 22^2, 20^2, 18^2, 16^2 at T=16), cut into fragments of 16
-// pixels that may wrap across region rows; the tail fragment reads a clamped
-// pixel and stores nothing.  N is 32 (o1..o4) or 64 (o5).  K is 9 taps x
-// Cin of each source; a tap is a pointer offset into the source's buffer, so
-// no patch matrix is built.  Eight warps (one block of 256 threads an SM)
-// each compute 32 columns: in stages 1-4 all eight take the fragments in
-// turn, in stage 5 two groups of four take one column half each.  Twelve
-// warps spill at their 168-register cap and ran slower.  The weights (479 KB
-// an RDB, more than an SM holds) stream from L2 through a ring of two 12 KB
-// slots: a slice is one tap row (3 taps) x 32 input channels x N, 6 k-steps,
-// and the next slice loads while the products of this one run; every block
-// reads each weight once, 60 slices and 60 barriers a tile.  Slices of one
-// tap (135 barriers of 2-4 k-steps each) ran slower on the card: the barrier
-// and the pipeline's restart, not the tensor cores, set the pace there.
-// Activations (200,704 B) and the ring take 225,280 B of shared memory,
-// which leaves no room for a row skew: the 16-byte chunks of each pixel's row
-// (and of each weight row) are placed by an XOR swizzle, so that the eight
-// rows of an ldmatrix phase fall in eight different bank groups.
+// One schedule serves both dtypes (rdb_body<P>, P the products of a fragment
+// pair: 1 for bf16, 3 for f32).  Each of the five stages is an implicit GEMM
+// on mma.sync m16n8k16 fed by ldmatrix (mma_tile.cuh).  M is the stage's
+// region of pixels (24^2, 22^2, 20^2, 18^2, 16^2 at T=16), cut into
+// fragments of 16 pixels that may wrap across region rows; the tail fragment
+// reads a clamped pixel and stores nothing.  N is 32 (o1..o4) or 64 (o5).  K
+// is 9 taps x Cin of each source; a tap is a pointer offset into the
+// source's buffer, so no patch matrix is built.  Eight warps (one block of
+// 256 threads an SM) each compute 32 columns: in stages 1-4 all eight take
+// the fragments in turn, in stage 5 two groups of four take one column half
+// each.  Twelve warps spill at their 168-register cap and ran slower (bf16).
+// The weights (479 KB an RDB in bf16, more than an SM holds) stream from L2
+// through a ring of two slots: a slice is one tap row (3 taps) x 32 input
+// channels x N, 6 k-steps, and the next slice loads while the products of
+// this one run; every block reads each weight once, 60 slices and 60
+// barriers a tile.  Slices of one tap (135 barriers of 2-4 k-steps each) ran
+// slower on the card: the barrier and the pipeline's restart, not the tensor
+// cores, set the pace there.  Activations and the ring take 225,280 B of
+// shared memory at bf16, T=16, which leaves no room for a row skew: the
+// 16-byte chunks of each pixel's row (and of each weight row) are placed by
+// an XOR swizzle, so that the eight rows of an ldmatrix phase fall in eight
+// different bank groups.
 //
-// f32 (rdb_f32_kernel): 512 threads on CUDA cores, 8 pixels x 2 output
-// channels a work item, weights read from L2 in pairs.  The tensor cores
-// would compute f32 as TF32, which keeps about three decimal digits: the f32
-// path is held to 1e-4 of the JAX output and stays exact here.
+// f32 (rdb_f32_split_kernel, P = 3): the tensor cores take f32 only as TF32
+// (10 mantissa bits), which breaks the f32 path's bound of 1e-4 from the JAX
+// output.  So every operand is split in two bf16 parts, a = a_hi + a_lo with
+// a_hi = bf16(a) and a_lo = bf16(a - a_hi), which keep 16 of a's 24 bits,
+// and each product is a_hi*b_hi + a_hi*b_lo + a_lo*b_hi, all three into one
+// f32 accumulator (lo*lo, 2^-16 of the whole, is dropped).  A bf16 x bf16
+// product is exact in f32.  The weights are split once a pack by the wrapper
+// (ops/fused_rdb.py::split_rdb_weights); x is split as it is loaded, o1..o4
+// after their LeakyReLU, as a stage writes them.  Each buffer and each ring
+// slot holds a hi plane and then a lo plane in the same swizzled layout, so
+// ldmatrix serves both: the bytes of f32, which fit at T=8 with the ring
+// (221,184 B) and not at T=16 (401,408 B for the activations alone).  The
+// per-source sums, the bias, LeakyReLU and 0.2 * o5 stay in f32 registers,
+// and the residual reads f32 x from device memory: x_hi + x_lo is off from x
+// by up to 2^-17 |x|, 2.4e-4 at the trunk's |x| of 57, more than the bound.
+// The tensor cores' own f32 accumulation truncates at every mma: one
+// accumulator a source (up to 108 chained products) put the generator's
+// trunk.21.rdb1 1.4e-4 from rdb_plain on its real inputs.  So hi*hi and the
+// two small cross products go to separate accumulators, both restarted every
+// weight slice (6 and 12 chained products), and each slice's partial sums
+// are added to the f32 running sum rounded to nearest: 4.2e-5 at worst over
+// the 69 RDBs, for 2% more time (tools/rdb_probe.py on an H100 80GB HBM3 at
+// 700 W, which builds such variants side by side).
 //
 // Numerics follow the packed formulation of the flax block
 // (real_esrgan_tpu/models/rrdbnet.py, ResidualDenseBlock, packed=True):
@@ -52,9 +75,13 @@
 //     semantics of the flax block; the Pallas kernel computes them there);
 //   * H and W need not be multiples of the tile: the ragged edge is masked.
 
+#include <type_traits>
+
 #include "mma_tile.cuh"
 
 namespace {
+
+using tile::bf16;
 
 constexpr int kC = 64;        // RDB channels
 constexpr int kG = 32;        // growth channels
@@ -62,8 +89,10 @@ constexpr int kHalo = 5;      // five chained 3x3 convs
 
 struct Params {
   const void* x;
-  const void* w[5];   // per-source packed weights, (9, Cin_s, N_s), N contiguous
-  const float* bias;  // (5, 64)
+  const void* w[5];     // per-source packed bf16 weights, (9, Cin_s, N_s), N contiguous;
+                        // for f32 their hi parts
+  const void* w_lo[5];  // for f32 the lo parts of the same; unused for bf16
+  const float* bias;    // (5, 64)
   void* out;
   int H, W;
 };
@@ -72,224 +101,41 @@ struct Params {
 // each except the last (o5), which is kC wide.
 __host__ __device__ constexpr int packed_columns(int s) { return (4 - s) * kG + kC; }
 
-// ---------------------------------------------------------------------------
-// f32 on CUDA cores
-// ---------------------------------------------------------------------------
-namespace f32 {
-
-constexpr int kTile = 8;
-constexpr int kThreads = 512;
-constexpr int kPix = 8;       // pixels of one work item
-constexpr int kQ = 2;         // output channels of one work item
-
-// Shared-memory buffer K: K = 0 is the x tile, K = 1..4 is o_K.
-template <int K>
-struct Buf {
-  static constexpr int kSide = kTile + 2 * (kHalo - K);
-  static constexpr int kCh = K == 0 ? kC : kG;
-  static constexpr int kElems = kSide * kSide * kCh;
-};
-
-constexpr size_t kSmemBytes = sizeof(float) * (Buf<0>::kElems + Buf<1>::kElems + Buf<2>::kElems +
-                                               Buf<3>::kElems + Buf<4>::kElems);
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ float lrelu(float v) { return v >= 0.f ? v : v * 0.2f; }
-
-// Adds source S's contribution to consumer K for one work item: kPix pixels
-// (region coordinates rr, cc of consumer K) by 2 output channels (oc, oc+1).
-template <int K, int S>
-__device__ __forceinline__ void add_source(const float* __restrict__ in,
-                                           const float* __restrict__ w_src,
-                                           const int (&rr)[kPix], const int (&cc)[kPix], int oc,
-                                           float (&sum)[kPix][kQ]) {
-  constexpr int kCin = Buf<S>::kCh;
-  constexpr int kSin = Buf<S>::kSide;
-  constexpr int kN = packed_columns(S);
-  constexpr int kCol = (K - 1 - S) * kG;
-  constexpr int kShift = K - S - 1;  // offset of consumer K's region inside source S's buffer
-  const float* w = w_src + kCol + oc;
-
-  int base[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) base[j] = ((rr[j] + kShift) * kSin + cc[j] + kShift) * kCin;
-
-  float acc[kPix][kQ];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) acc[j][0] = acc[j][1] = 0.f;
-
-#pragma unroll 1
-  for (int tap = 0; tap < 9; ++tap) {
-    const int toff = ((tap / 3) * kSin + tap % 3) * kCin;
-    const float* wt = w + tap * kCin * kN;
-#pragma unroll 1
-    for (int ci = 0; ci < kCin; ci += 8) {
-      float2 wv[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) wv[u] = __ldg(reinterpret_cast<const float2*>(wt + (ci + u) * kN));
-#pragma unroll
-      for (int j = 0; j < kPix; ++j) {
-        float xv[8];
-        load8(in + base[j] + toff + ci, xv);
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          acc[j][0] = fmaf(xv[u], wv[u].x, acc[j][0]);
-          acc[j][1] = fmaf(xv[u], wv[u].y, acc[j][1]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) sum[j][q] = S == 0 ? acc[j][q] : sum[j][q] + acc[j][q];
-  }
-}
-
-// Computes o_K (K = 1..4) into shared memory, or for K = 5 the block's output
-// tile 0.2 * o5 + x into device memory.
-template <int K>
-__device__ __forceinline__ void stage(const Params& p, float* const (&buf)[5], int ty0, int tx0) {
-  constexpr int kSide = K < 5 ? Buf<K>::kSide : kTile;
-  constexpr int kCout = K < 5 ? kG : kC;
-  constexpr int kGroups = kCout / kQ;
-  constexpr int kRegion = kSide * kSide;
-  constexpr int kItems = (kRegion + kPix - 1) / kPix * kGroups;
-  const int org_y = ty0 - (kHalo - K);  // image coordinates of region (0, 0)
-  const int org_x = tx0 - (kHalo - K);
-
-  for (int item = threadIdx.x; item < kItems; item += kThreads) {
-    const int oc = (item % kGroups) * kQ;
-    const int pix0 = (item / kGroups) * kPix;
-    int rr[kPix], cc[kPix];
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      const int pix = min(pix0 + j, kRegion - 1);  // the tail computes a valid pixel, never stored
-      rr[j] = pix / kSide;
-      cc[j] = pix % kSide;
-    }
-
-    float sum[kPix][kQ];
-    add_source<K, 0>(buf[0], static_cast<const float*>(p.w[0]), rr, cc, oc, sum);
-    if constexpr (K > 1) add_source<K, 1>(buf[1], static_cast<const float*>(p.w[1]), rr, cc, oc, sum);
-    if constexpr (K > 2) add_source<K, 2>(buf[2], static_cast<const float*>(p.w[2]), rr, cc, oc, sum);
-    if constexpr (K > 3) add_source<K, 3>(buf[3], static_cast<const float*>(p.w[3]), rr, cc, oc, sum);
-    if constexpr (K > 4) add_source<K, 4>(buf[4], static_cast<const float*>(p.w[4]), rr, cc, oc, sum);
-
-    const float b0 = p.bias[(K - 1) * kC + oc];
-    const float b1 = p.bias[(K - 1) * kC + oc + 1];
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      if (pix0 + j >= kRegion) break;
-      float v0 = sum[j][0] + b0;
-      float v1 = sum[j][1] + b1;
-      const int gy = org_y + rr[j];
-      const int gx = org_x + cc[j];
-      if constexpr (K < 5) {
-        const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-        v0 = inside ? lrelu(v0) : 0.f;
-        v1 = inside ? lrelu(v1) : 0.f;
-        *reinterpret_cast<float2*>(buf[K] + (rr[j] * kSide + cc[j]) * kG + oc) = make_float2(v0, v1);
-      } else {
-        if (gy < p.H && gx < p.W) {
-          const float* xc = buf[0] + ((rr[j] + kHalo) * Buf<0>::kSide + cc[j] + kHalo) * kC + oc;
-          float* out = static_cast<float*>(p.out) + (((size_t)blockIdx.z * p.H + gy) * p.W + gx) * kC + oc;
-          *reinterpret_cast<float2*>(out) = make_float2(v0 * 0.2f + xc[0], v1 * 0.2f + xc[1]);
-        }
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 1) rdb_f32_kernel(Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const buf[5] = {
-      reinterpret_cast<float*>(smem),
-      reinterpret_cast<float*>(smem) + Buf<0>::kElems,
-      reinterpret_cast<float*>(smem) + Buf<0>::kElems + Buf<1>::kElems,
-      reinterpret_cast<float*>(smem) + Buf<0>::kElems + Buf<1>::kElems + Buf<2>::kElems,
-      reinterpret_cast<float*>(smem) + Buf<0>::kElems + Buf<1>::kElems + Buf<2>::kElems +
-          Buf<3>::kElems,
-  };
-  const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * kTile;
-  const int tx0 = blockIdx.x * kTile;
-
-  // x tile with its halo, zero outside the image, in 16-byte vectors
-  {
-    constexpr int kSide = Buf<0>::kSide;
-    constexpr int kVec = 4;
-    constexpr int kVecs = kSide * kSide * kC / kVec;
-    const float* x = static_cast<const float*>(p.x) + (size_t)b * p.H * p.W * kC;
-    for (int i = threadIdx.x; i < kVecs; i += kThreads) {
-      const int e = i * kVec;
-      const int pix = e / kC;
-      const int gy = ty0 - kHalo + pix / kSide;
-      const int gx = tx0 - kHalo + pix % kSide;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W)
-        v = __ldg(reinterpret_cast<const uint4*>(x + ((size_t)gy * p.W + gx) * kC + e % kC));
-      *reinterpret_cast<uint4*>(buf[0] + e) = v;
-    }
-  }
-  __syncthreads();
-  stage<1>(p, buf, ty0, tx0);
-  __syncthreads();
-  stage<2>(p, buf, ty0, tx0);
-  __syncthreads();
-  stage<3>(p, buf, ty0, tx0);
-  __syncthreads();
-  stage<4>(p, buf, ty0, tx0);
-  __syncthreads();
-  stage<5>(p, buf, ty0, tx0);
-}
-
-int launch(const Params& p, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rdb_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((p.W + kTile - 1) / kTile, (p.H + kTile - 1) / kTile, B);
-  rdb_f32_kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace f32
-
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores
-// ---------------------------------------------------------------------------
-namespace bf16mma {
-
-using tile::bf16;
-
-constexpr int kTile = 16;
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kGroup = 32;               // input channels of one weight slice
-constexpr int kRingSlots = 2;            // one slice in flight ahead of the one in use
-constexpr int kSlotElems = 3 * kGroup * kC;  // the largest slice: 3 taps x 32 x 64 columns
+constexpr int kGroup = 32;                   // input channels of one weight slice
+constexpr int kRingSlots = 2;                // one slice in flight ahead of the one in use
+constexpr int kSliceElems = 3 * kGroup * kC;  // one plane of the largest slice: 3 taps x 32 x 64
 // A slice is (stage k, source s, group of 32 input channels, tap row dy), in
 // that order: stage k has k + 1 channel groups (two of x, one of each o).
 constexpr int kSlices = 3 * (2 + 3 + 4 + 5 + 6);
 
+// P, the products of a fragment pair: 1 (bf16) or 3 (f32 as hi*hi + hi*lo +
+// lo*hi).  For P = 3 every buffer and ring slot holds a hi and a lo plane.
+template <int P>
+__host__ __device__ constexpr int planes() { return P == 1 ? 1 : 2; }
+template <int P>
+__host__ __device__ constexpr int tile_side() { return P == 1 ? 16 : 8; }
+
 // Buffer s (0: x, 1..4: o_s) is the region of stage s; stage 5's region is
 // the output tile.
-__host__ __device__ constexpr int side(int s) { return kTile + 2 * (kHalo - s); }
+template <int P>
+__host__ __device__ constexpr int side(int s) { return tile_side<P>() + 2 * (kHalo - s); }
 __host__ __device__ constexpr int channels(int s) { return s == 0 ? kC : kG; }
-__host__ __device__ constexpr int buf_elems(int s) { return side(s) * side(s) * channels(s); }
+template <int P>
+__host__ __device__ constexpr int plane_elems(int s) { return side<P>(s) * side<P>(s) * channels(s); }
+template <int P>
 __host__ __device__ constexpr int buf_offset(int s) {
-  return s == 0 ? 0 : buf_offset(s - 1) + buf_elems(s - 1);
+  return s == 0 ? 0 : buf_offset<P>(s - 1) + planes<P>() * plane_elems<P>(s - 1);
 }
-constexpr int kRingOffset = buf_offset(5);
-constexpr size_t kSmemBytes = sizeof(bf16) * (kRingOffset + kRingSlots * kSlotElems);
-static_assert(kSmemBytes <= 232448, "more shared memory than a block may have");
+
+template <int P>
+struct Layout {
+  static constexpr int kRingOffset = buf_offset<P>(5);
+  static constexpr int kSlotElems = planes<P>() * kSliceElems;
+  static constexpr size_t kSmemBytes = sizeof(bf16) * (kRingOffset + kRingSlots * kSlotElems);
+  static_assert(kSmemBytes <= 232448, "more shared memory than a block may have");
+};
 
 // Rows of 4 or 8 chunks of 16 bytes (64- or 128-byte rows).  Chunk c of row
 // r is stored at chunk c ^ swizzle(r): eight consecutive rows read at the
@@ -308,14 +154,27 @@ __device__ __forceinline__ int chunk_offset(int row, int chunk) {
 
 __device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16(v)); }
 
+// LeakyReLU(0.2) as the flax block computes it in bf16 (every product rounded)
 __device__ __forceinline__ float lrelu(float v) {
   return v >= 0.f ? v : round_bf16(v * round_bf16(0.2f));
+}
+
+__device__ __forceinline__ float lrelu_f32(float v) { return v >= 0.f ? v : v * 0.2f; }
+
+// Two f32 values as their bf16 hi parts and lo parts, one register each:
+// hi = bf16(v), lo = bf16(v - hi) (the difference is exact in f32).
+__device__ __forceinline__ void split2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = reinterpret_cast<const uint32_t&>(h);
+  lo = reinterpret_cast<const uint32_t&>(l);
 }
 
 // Copies the 3 x 32 rows of one slice (row dx * 32 + c: tap dx of the row,
 // input channel c of the group) from source s's packed weights, whose rows
 // (tap, channel) are ld elements long and whose rows of one tap lie cin
-// apart, into a slot of kChunks * 8 columns.
+// apart, into a slot plane of kChunks * 8 columns.
 template <int kChunks>
 __device__ __forceinline__ void copy_slice(bf16* dst, const bf16* src, int cin, int ld) {
   for (int i = threadIdx.x; i < 3 * kGroup * kChunks; i += kThreads) {
@@ -327,8 +186,10 @@ __device__ __forceinline__ void copy_slice(bf16* dst, const bf16* src, int cin, 
 }
 
 // Starts the copy of weight slice i into its ring slot: the columns of
-// consumer k in source s's packed weights.  Commits a group even past the
-// last slice, so that the count of groups in flight stays the same.
+// consumer k in source s's packed weights (for P = 3 the hi part into the
+// slot's first plane, the lo part into its second).  Commits a group even
+// past the last slice, so that the count of groups in flight stays the same.
+template <int P>
 __device__ __forceinline__ void start_slice(const Params& p, bf16* ring, int i) {
   if (i < kSlices) {
     int k = 1, r = i;
@@ -336,12 +197,23 @@ __device__ __forceinline__ void start_slice(const Params& p, bf16* ring, int i) 
     const int group = r / 3, dy = r % 3;  // groups 0, 1 are x, group g > 1 is o_{g-1}
     const int s = group < 2 ? 0 : group - 1, c0 = group == 1 ? kGroup : 0;
     const int cin = channels(s), ld = packed_columns(s);
+    const size_t offset = (size_t)(3 * dy * cin + c0) * ld + (k - 1 - s) * kG;
+    bf16* dst = ring + (i % kRingSlots) * Layout<P>::kSlotElems;
     // a constant index into the kernel's parameters, so they stay out of local memory
     const void* w = s == 0 ? p.w[0] : s == 1 ? p.w[1] : s == 2 ? p.w[2] : s == 3 ? p.w[3] : p.w[4];
-    const bf16* src = static_cast<const bf16*>(w) + (size_t)(3 * dy * cin + c0) * ld + (k - 1 - s) * kG;
-    bf16* dst = ring + (i % kRingSlots) * kSlotElems;
+    const bf16* src = static_cast<const bf16*>(w) + offset;
     if (k < 5) copy_slice<kG / 8>(dst, src, cin, ld);
     else copy_slice<kC / 8>(dst, src, cin, ld);
+    if constexpr (P == 3) {
+      const void* lo = s == 0   ? p.w_lo[0]
+                       : s == 1 ? p.w_lo[1]
+                       : s == 2 ? p.w_lo[2]
+                       : s == 3 ? p.w_lo[3]
+                                : p.w_lo[4];
+      const bf16* src_lo = static_cast<const bf16*>(lo) + offset;
+      if (k < 5) copy_slice<kG / 8>(dst + kSliceElems, src_lo, cin, ld);
+      else copy_slice<kC / 8>(dst + kSliceElems, src_lo, cin, ld);
+    }
   }
   tile::cp_async_commit();
 }
@@ -349,19 +221,20 @@ __device__ __forceinline__ void start_slice(const Params& p, bf16* ring, int i) 
 // Waits for slice i, frees the slot of slice i - 1 (every warp is past it
 // after the barrier) and starts slice i + kRingSlots - 1 there.  Returns the
 // shared-memory address of slice i.
+template <int P>
 __device__ __forceinline__ uint32_t acquire_slice(const Params& p, bf16* ring, int i) {
   tile::cp_async_wait<kRingSlots - 2>();
   __syncthreads();
-  start_slice(p, ring, i + kRingSlots - 1);
-  return tile::shared_address(ring + (i % kRingSlots) * kSlotElems);
+  start_slice<P>(p, ring, i + kRingSlots - 1);
+  return tile::shared_address(ring + (i % kRingSlots) * Layout<P>::kSlotElems);
 }
 
 // Per-warp state of one stage.  A warp computes 32 output columns: stage 5's
 // 64 columns go to two groups of kWarps / 2 warps.  Warp w of a group of
 // kGroupWarps takes fragments of 16 region pixels w, w + kGroupWarps, ...
-template <int K>
+template <int P, int K>
 struct Stage {
-  static constexpr int kSide = side(K);
+  static constexpr int kSide = side<P>(K);
   static constexpr int kPixels = kSide * kSide;
   static constexpr int kFrags = (kPixels + 15) / 16;
   static constexpr int kN = K < 5 ? kG : kC;      // columns of the stage (and of its slices)
@@ -369,7 +242,9 @@ struct Stage {
   static constexpr int kU = (kFrags + kGroupWarps - 1) / kGroupWarps;
   static constexpr int kNF = kG / 16;             // 16-column fragments of a warp
   tile::FragC acc[kU][kNF];
-  __nv_bfloat162 sum[kU][kNF][4];  // running sum in bf16, two columns a register
+  // running sum over the sources: bf16, two columns a register, for P = 1;
+  // f32, laid out as acc, for P = 3
+  std::conditional_t<P == 1, __nv_bfloat162[kU][kNF][4], float[kU][kNF][8]> sum;
   int rr[kU], cc[kU];        // region row and column of this lane's A row
   int first, units;          // this warp's first fragment and its count
   int col0;                  // this warp's first column
@@ -377,27 +252,37 @@ struct Stage {
 
 // Adds source S's conv to stage K's running sum: one slice for each group of
 // 32 input channels and tap row, 6 k-steps each (3 taps x 2 x 16 channels),
-// every fragment of the warp against the slice.
-template <int K, int S>
-__device__ __forceinline__ void add_source(const Params& p, bf16* smem, int& slice, Stage<K>& st) {
-  using St = Stage<K>;
+// every fragment of the warp against the slice, P products each.
+template <int P, int K, int S>
+__device__ __forceinline__ void add_source(const Params& p, bf16* smem, int& slice, Stage<P, K>& st) {
+  using St = Stage<P, K>;
   constexpr int kU = St::kU, kNF = St::kNF, kN = St::kN;
-  constexpr int kSin = side(S), kCin = channels(S), kChunks = kCin / 8;
+  constexpr int kSin = side<P>(S), kCin = channels(S), kChunks = kCin / 8;
   constexpr int kSteps = 3 * kGroup / 16;
   constexpr int kShift = K - S - 1;  // consumer K's region inside source S's buffer, less the tap
+  constexpr int kPlanes = planes<P>();
+  // bytes from a hi plane to its lo plane: of the source's buffer, of a ring slot
+  constexpr uint32_t kInLo = plane_elems<P>(S) * sizeof(bf16);
+  constexpr uint32_t kSliceLo = kSliceElems * sizeof(bf16);
   const int lane = threadIdx.x & 31, hi = lane >> 4, brow = lane & 15;
-  const uint32_t in = tile::shared_address(smem + buf_offset(S));
-  bf16* ring = smem + kRingOffset;
+  const uint32_t in = tile::shared_address(smem + buf_offset<P>(S));
+  bf16* ring = smem + Layout<P>::kRingOffset;
 
   int p0[kU];
 #pragma unroll
   for (int u = 0; u < kU; ++u) p0[u] = (st.rr[u] + kShift) * kSin + st.cc[u] + kShift;
+  auto zero = [](tile::FragC (&f)[kU][kNF]) {
 #pragma unroll
-  for (int u = 0; u < kU; ++u)
+    for (int u = 0; u < kU; ++u)
 #pragma unroll
-    for (int q = 0; q < kNF; ++q)
+      for (int q = 0; q < kNF; ++q)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) st.acc[u][q].r[e] = 0.f;
+        for (int e = 0; e < 8; ++e) f[u][q].r[e] = 0.f;
+  };
+  // P = 3: hi*hi goes to acc, hi*lo and lo*hi to cross, both restarted every
+  // slice (see the f32 note at the top)
+  tile::FragC cross[kU][kNF];
+  if constexpr (P == 1) zero(st.acc);
 
   // this lane's row of a 16 x 16 B block: slice row 16 j + brow, swizzled
   const uint32_t b_row = brow * kN * 2;
@@ -405,57 +290,81 @@ __device__ __forceinline__ void add_source(const Params& p, bf16* smem, int& sli
 
 #pragma unroll 1
   for (int part = 0; part < 3 * kCin / kGroup; ++part, ++slice) {
-    const uint32_t w = acquire_slice(p, ring, slice);
+    const uint32_t w = acquire_slice<P>(p, ring, slice);
     const int row = (part % 3) * kSin, chunk0 = (part / 3) * (kGroup / 8) + hi;
-    tile::FragA a[2][kU];
-    tile::FragB b[2][kNF];
+    if constexpr (P == 3) {
+      zero(st.acc);
+      zero(cross);
+    }
+    tile::FragA a[2][kPlanes][kU];
+    tile::FragB b[2][kPlanes][kNF];
     // k-step j: tap dx = j / 2 of the row, channels 16 (j % 2) .. + 15 of the group
-    auto load = [&](int j, tile::FragA (&fa)[kU], tile::FragB (&fb)[kNF]) {
+    auto load = [&](int j, tile::FragA (&fa)[kPlanes][kU], tile::FragB (&fb)[kPlanes][kNF]) {
 #pragma unroll
       for (int u = 0; u < kU; ++u)
         if (u < st.units) {
           const int px = p0[u] + row + j / 2;
-          tile::ldsm_x4(fa[u].r, in + px * kCin * 2 + (((chunk0 + 2 * (j % 2)) ^ swizzle<kChunks>(px)) << 4));
+          const uint32_t at = in + px * kCin * 2 + (((chunk0 + 2 * (j % 2)) ^ swizzle<kChunks>(px)) << 4);
+#pragma unroll
+          for (int h = 0; h < kPlanes; ++h) tile::ldsm_x4(fa[h][u].r, at + h * kInLo);
         }
 #pragma unroll
-      for (int q = 0; q < kNF; ++q)
-        tile::ldsm_x4_trans(fb[q].r, w + (16 * j) * kN * 2 + b_row +
-                                         (((st.col0 / 8 + 2 * q + hi) ^ b_swz) << 4));
+      for (int q = 0; q < kNF; ++q) {
+        const uint32_t at = w + (16 * j) * kN * 2 + b_row + (((st.col0 / 8 + 2 * q + hi) ^ b_swz) << 4);
+#pragma unroll
+        for (int h = 0; h < kPlanes; ++h) tile::ldsm_x4_trans(fb[h][q].r, at + h * kSliceLo);
+      }
     };
     load(0, a[0], b[0]);
 #pragma unroll
     for (int j = 0; j < kSteps; ++j) {
       if (j + 1 < kSteps) load(j + 1, a[(j + 1) & 1], b[(j + 1) & 1]);
+      // products t = 0, 1, 2: hi*hi, hi*lo, lo*hi, each over every fragment
+      // pair before the next
+#pragma unroll
+      for (int t = 0; t < P; ++t)
+#pragma unroll
+        for (int u = 0; u < kU; ++u)
+          if (u < st.units)
+#pragma unroll
+            for (int q = 0; q < kNF; ++q)
+              tile::mma(t == 0 ? st.acc[u][q] : cross[u][q], a[j & 1][t == 2][u], b[j & 1][t == 1][q]);
+    }
+    if constexpr (P == 3) {
+      // the slice's partial sums into the f32 running sum, rounded to nearest
 #pragma unroll
       for (int u = 0; u < kU; ++u)
-        if (u < st.units)
 #pragma unroll
-          for (int q = 0; q < kNF; ++q) tile::mma(st.acc[u][q], a[j & 1][u], b[j & 1][q]);
+        for (int q = 0; q < kNF; ++q)
+#pragma unroll
+          for (int e = 0; e < 8; ++e) st.sum[u][q][e] += st.acc[u][q].r[e] + cross[u][q].r[e];
     }
   }
 
-  // round the source's conv to bf16 and add it to the running bf16 sum
+  if constexpr (P == 1) {
+    // round the source's conv to bf16 and add it to the running bf16 sum
 #pragma unroll
-  for (int u = 0; u < kU; ++u)
+    for (int u = 0; u < kU; ++u)
 #pragma unroll
-    for (int q = 0; q < kNF; ++q)
+      for (int q = 0; q < kNF; ++q)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const __nv_bfloat162 t = __floats2bfloat162_rn(st.acc[u][q].r[2 * e], st.acc[u][q].r[2 * e + 1]);
-        if constexpr (S == 0) {
-          st.sum[u][q][e] = t;
-        } else {
-          const float2 old = __bfloat1622float2(st.sum[u][q][e]), add = __bfloat1622float2(t);
-          st.sum[u][q][e] = __floats2bfloat162_rn(old.x + add.x, old.y + add.y);
+        for (int e = 0; e < 4; ++e) {
+          const __nv_bfloat162 t = __floats2bfloat162_rn(st.acc[u][q].r[2 * e], st.acc[u][q].r[2 * e + 1]);
+          if constexpr (S == 0) {
+            st.sum[u][q][e] = t;
+          } else {
+            const float2 old = __bfloat1622float2(st.sum[u][q][e]), add = __bfloat1622float2(t);
+            st.sum[u][q][e] = __floats2bfloat162_rn(old.x + add.x, old.y + add.y);
+          }
         }
-      }
+  }
 }
 
 // Stage K: o_K (K = 1..4) into its shared-memory buffer, or for K = 5 the
 // block's output tile 0.2 * o5 + x into device memory.
-template <int K>
+template <int P, int K>
 __device__ __forceinline__ void stage(const Params& p, bf16* smem, int& slice, int ty0, int tx0) {
-  using St = Stage<K>;
+  using St = Stage<P, K>;
   constexpr int kSide = St::kSide, kPixels = St::kPixels, kU = St::kU, kNF = St::kNF;
   constexpr int kGroupWarps = St::kGroupWarps;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -469,17 +378,24 @@ __device__ __forceinline__ void stage(const Params& p, bf16* smem, int& slice, i
     st.rr[u] = m / kSide;
     st.cc[u] = m % kSide;
   }
-  add_source<K, 0>(p, smem, slice, st);
-  if constexpr (K > 1) add_source<K, 1>(p, smem, slice, st);
-  if constexpr (K > 2) add_source<K, 2>(p, smem, slice, st);
-  if constexpr (K > 3) add_source<K, 3>(p, smem, slice, st);
-  if constexpr (K > 4) add_source<K, 4>(p, smem, slice, st);
+  if constexpr (P == 3) {
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int q = 0; q < kNF; ++q)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) st.sum[u][q][e] = 0.f;
+  }
+  add_source<P, K, 0>(p, smem, slice, st);
+  if constexpr (K > 1) add_source<P, K, 1>(p, smem, slice, st);
+  if constexpr (K > 2) add_source<P, K, 2>(p, smem, slice, st);
+  if constexpr (K > 3) add_source<P, K, 3>(p, smem, slice, st);
+  if constexpr (K > 4) add_source<P, K, 4>(p, smem, slice, st);
 
   // epilogue: lane holds columns 2 (lane % 4) + {0, 1} (and + 8) of rows
   // lane / 4 and lane / 4 + 8 of each 16 x 16 block
   const int g = lane >> 2, c2 = (lane & 3) * 2;
   const int org_y = ty0 - (kHalo - K), org_x = tx0 - (kHalo - K);  // image coordinates of region (0, 0)
-  const bf16* x_buf = smem;
 #pragma unroll
   for (int u = 0; u < kU; ++u) {
     if (u >= st.units) continue;
@@ -494,78 +410,144 @@ __device__ __forceinline__ void stage(const Params& p, bf16* smem, int& slice, i
 #pragma unroll
         for (int nh = 0; nh < 2; ++nh) {
           const int n = st.col0 + q * 16 + nh * 8 + c2;
-          const float2 s = __bfloat1622float2(st.sum[u][q][nh * 2 + half]);
-          const float v0 = round_bf16(s.x + round_bf16(__ldg(p.bias + (K - 1) * kC + n)));
-          const float v1 = round_bf16(s.y + round_bf16(__ldg(p.bias + (K - 1) * kC + n + 1)));
-          if constexpr (K < 5) {
-            const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-            const __nv_bfloat162 o = inside ? __floats2bfloat162_rn(lrelu(v0), lrelu(v1))
-                                            : __floats2bfloat162_rn(0.f, 0.f);
-            *reinterpret_cast<__nv_bfloat162*>(smem + buf_offset(K) + chunk_offset<kG / 8>(m, n >> 3) +
-                                               (n & 7)) = o;
-          } else if (gy < p.H && gx < p.W) {
-            const int px = (r + kHalo) * side(0) + c + kHalo;
-            const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
-                x_buf + chunk_offset<kC / 8>(px, n >> 3) + (n & 7)));
-            const float res = round_bf16(0.2f);
-            bf16* out = static_cast<bf16*>(p.out) + (((size_t)blockIdx.z * p.H + gy) * p.W + gx) * kC + n;
-            *reinterpret_cast<__nv_bfloat162*>(out) =
-                __floats2bfloat162_rn(round_bf16(v0 * res) + xv.x, round_bf16(v1 * res) + xv.y);
+          if constexpr (P == 1) {
+            const float2 s = __bfloat1622float2(st.sum[u][q][nh * 2 + half]);
+            const float v0 = round_bf16(s.x + round_bf16(__ldg(p.bias + (K - 1) * kC + n)));
+            const float v1 = round_bf16(s.y + round_bf16(__ldg(p.bias + (K - 1) * kC + n + 1)));
+            if constexpr (K < 5) {
+              const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+              const __nv_bfloat162 o = inside ? __floats2bfloat162_rn(lrelu(v0), lrelu(v1))
+                                              : __floats2bfloat162_rn(0.f, 0.f);
+              *reinterpret_cast<__nv_bfloat162*>(smem + buf_offset<P>(K) + chunk_offset<kG / 8>(m, n >> 3) +
+                                                 (n & 7)) = o;
+            } else if (gy < p.H && gx < p.W) {
+              const int px = (r + kHalo) * side<P>(0) + c + kHalo;
+              const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                  smem + chunk_offset<kC / 8>(px, n >> 3) + (n & 7)));
+              const float res = round_bf16(0.2f);
+              bf16* out = static_cast<bf16*>(p.out) + (((size_t)blockIdx.z * p.H + gy) * p.W + gx) * kC + n;
+              *reinterpret_cast<__nv_bfloat162*>(out) =
+                  __floats2bfloat162_rn(round_bf16(v0 * res) + xv.x, round_bf16(v1 * res) + xv.y);
+            }
+          } else {
+            const int e = nh * 4 + half * 2;
+            const float v0 = st.sum[u][q][e] + __ldg(p.bias + (K - 1) * kC + n);
+            const float v1 = st.sum[u][q][e + 1] + __ldg(p.bias + (K - 1) * kC + n + 1);
+            if constexpr (K < 5) {
+              const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+              uint32_t hi, lo;
+              split2(inside ? lrelu_f32(v0) : 0.f, inside ? lrelu_f32(v1) : 0.f, hi, lo);
+              bf16* dst = smem + buf_offset<P>(K) + chunk_offset<kG / 8>(m, n >> 3) + (n & 7);
+              *reinterpret_cast<uint32_t*>(dst) = hi;
+              *reinterpret_cast<uint32_t*>(dst + plane_elems<P>(K)) = lo;
+            } else if (gy < p.H && gx < p.W) {
+              // the residual in f32 from device memory, rounded as 0.2 * o5 + x is
+              const size_t at = (((size_t)blockIdx.z * p.H + gy) * p.W + gx) * kC + n;
+              const float2 xv = __ldg(reinterpret_cast<const float2*>(static_cast<const float*>(p.x) + at));
+              *reinterpret_cast<float2*>(static_cast<float*>(p.out) + at) =
+                  make_float2(__fadd_rn(__fmul_rn(v0, 0.2f), xv.x), __fadd_rn(__fmul_rn(v1, 0.2f), xv.y));
+            }
           }
         }
     }
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1) rdb_bf16_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
-
-  // x tile with its halo, zero outside the image, one 16-byte chunk a copy
-  {
-    constexpr int kSide = side(0), kChunks = kC / 8;
-    const bf16* x = static_cast<const bf16*>(p.x) + (size_t)blockIdx.z * p.H * p.W * kC;
-    for (int i = threadIdx.x; i < kSide * kSide * kChunks; i += kThreads) {
-      const int pix = i / kChunks, ch = i % kChunks;
-      const int gy = ty0 - kHalo + pix / kSide, gx = tx0 - kHalo + pix % kSide;
-      const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
-      const bf16* src = x + (inside ? ((size_t)gy * p.W + gx) * kC + ch * 8 : 0);
-      tile::cp_async_16(smem + chunk_offset<kChunks>(pix, ch), src, inside);
-    }
-    tile::cp_async_commit();
+// bf16: the x tile with its halo, zero outside the image, one 16-byte chunk
+// a cp.async, in a group of its own.
+__device__ __forceinline__ void load_x_bf16(const Params& p, bf16* smem, int ty0, int tx0) {
+  constexpr int kSide = side<1>(0), kChunks = kC / 8;
+  const bf16* x = static_cast<const bf16*>(p.x) + (size_t)blockIdx.z * p.H * p.W * kC;
+  for (int i = threadIdx.x; i < kSide * kSide * kChunks; i += kThreads) {
+    const int pix = i / kChunks, ch = i % kChunks;
+    const int gy = ty0 - kHalo + pix / kSide, gx = tx0 - kHalo + pix % kSide;
+    const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+    const bf16* src = x + (inside ? ((size_t)gy * p.W + gx) * kC + ch * 8 : 0);
+    tile::cp_async_16(smem + chunk_offset<kChunks>(pix, ch), src, inside);
   }
-  for (int i = 0; i < kRingSlots - 1; ++i) start_slice(p, smem + kRingOffset, i);
-
-  int slice = 0;
-  stage<1>(p, smem, slice, ty0, tx0);
-  stage<2>(p, smem, slice, ty0, tx0);
-  stage<3>(p, smem, slice, ty0, tx0);
-  stage<4>(p, smem, slice, ty0, tx0);
-  stage<5>(p, smem, slice, ty0, tx0);
+  tile::cp_async_commit();
 }
 
-int launch(const Params& p, int B, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(rdb_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+// f32: the x tile with its halo, zero outside the image, split into its hi
+// and lo planes through registers: 8 channels (32 bytes) a step.  Visible
+// after the barrier of the first acquire_slice.
+__device__ __forceinline__ void load_x_split(const Params& p, bf16* smem, int ty0, int tx0) {
+  constexpr int kSide = side<3>(0), kChunks = kC / 8;
+  const float* x = static_cast<const float*>(p.x) + (size_t)blockIdx.z * p.H * p.W * kC;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kSide * kSide * kChunks; i += kThreads) {
+    const int pix = i / kChunks, ch = i % kChunks;
+    const int gy = ty0 - kHalo + pix / kSide, gx = tx0 - kHalo + pix % kSide;
+    float4 v0 = make_float4(0.f, 0.f, 0.f, 0.f), v1 = v0;
+    if (gy >= 0 && gy < p.H && gx >= 0 && gx < p.W) {
+      const float4* src = reinterpret_cast<const float4*>(x + ((size_t)gy * p.W + gx) * kC + ch * 8);
+      v0 = __ldg(src);
+      v1 = __ldg(src + 1);
+    }
+    uint4 hi, lo;
+    split2(v0.x, v0.y, hi.x, lo.x);
+    split2(v0.z, v0.w, hi.y, lo.y);
+    split2(v1.x, v1.y, hi.z, lo.z);
+    split2(v1.z, v1.w, hi.w, lo.w);
+    bf16* dst = smem + chunk_offset<kChunks>(pix, ch);
+    *reinterpret_cast<uint4*>(dst) = hi;
+    *reinterpret_cast<uint4*>(dst + plane_elems<3>(0)) = lo;
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void rdb_body(const Params& p, bf16* smem) {
+  const int ty0 = blockIdx.y * tile_side<P>(), tx0 = blockIdx.x * tile_side<P>();
+  if constexpr (P == 1) {
+    load_x_bf16(p, smem, ty0, tx0);
+    for (int i = 0; i < kRingSlots - 1; ++i) start_slice<P>(p, smem + Layout<P>::kRingOffset, i);
+  } else {
+    // the first weight slice is in flight while x is loaded and split
+    for (int i = 0; i < kRingSlots - 1; ++i) start_slice<P>(p, smem + Layout<P>::kRingOffset, i);
+    load_x_split(p, smem, ty0, tx0);
+  }
+  int slice = 0;
+  stage<P, 1>(p, smem, slice, ty0, tx0);
+  stage<P, 2>(p, smem, slice, ty0, tx0);
+  stage<P, 3>(p, smem, slice, ty0, tx0);
+  stage<P, 4>(p, smem, slice, ty0, tx0);
+  stage<P, 5>(p, smem, slice, ty0, tx0);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) rdb_bf16_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  rdb_body<1>(p, reinterpret_cast<bf16*>(smem_raw));
+}
+
+__global__ void __launch_bounds__(kThreads, 1) rdb_f32_split_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  rdb_body<3>(p, reinterpret_cast<bf16*>(smem_raw));
+}
+
+template <int P>
+int launch(void (*kernel)(Params), const Params& p, int B, cudaStream_t stream) {
+  constexpr int kBytes = static_cast<int>(Layout<P>::kSmemBytes);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kTile = tile_side<P>();
   const dim3 grid((p.W + kTile - 1) / kTile, (p.H + kTile - 1) / kTile, B);
-  rdb_bf16_kernel<<<grid, kThreads, kSmemBytes, stream>>>(p);
+  kernel<<<grid, kThreads, kBytes, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace bf16mma
-
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch.
+// dtype: 0 = float32 (w0..w4 the bf16 hi parts of the packed weights, l0..l4
+// their lo parts), 1 = bfloat16 (l0..l4 unused).  Returns the cudaError_t of
+// the launch.
 extern "C" int fused_rdb_forward(int dtype, const void* x, const void* w0, const void* w1,
-                                 const void* w2, const void* w3, const void* w4,
+                                 const void* w2, const void* w3, const void* w4, const void* l0,
+                                 const void* l1, const void* l2, const void* l3, const void* l4,
                                  const void* bias, void* out, int B, int H, int W, void* stream) {
-  const Params p{x, {w0, w1, w2, w3, w4}, static_cast<const float*>(bias), out, H, W};
+  const Params p{x, {w0, w1, w2, w3, w4}, {l0, l1, l2, l3, l4}, static_cast<const float*>(bias), out, H, W};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return f32::launch(p, B, s);
-  if (dtype == 1) return bf16mma::launch(p, B, s);
+  if (dtype == 0) return launch<3>(rdb_f32_split_kernel, p, B, s);
+  if (dtype == 1) return launch<1>(rdb_bf16_kernel, p, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -573,10 +555,10 @@ extern "C" int fused_rdb_forward(int dtype, const void* x, const void* w0, const
 // dtype's kernel (0 = float32, 1 = bfloat16), or -1 for another dtype.  The
 // wrapper holds them against ops/fused_rdb.py::rdb_plan.
 extern "C" int fused_rdb_tile(int dtype) {
-  return dtype == 0 ? f32::kTile : dtype == 1 ? bf16mma::kTile : -1;
+  return dtype == 0 ? tile_side<3>() : dtype == 1 ? tile_side<1>() : -1;
 }
 
 extern "C" int fused_rdb_smem_bytes(int dtype) {
-  return dtype == 0 ? static_cast<int>(f32::kSmemBytes)
-                    : dtype == 1 ? static_cast<int>(bf16mma::kSmemBytes) : -1;
+  return dtype == 0 ? static_cast<int>(Layout<3>::kSmemBytes)
+                    : dtype == 1 ? static_cast<int>(Layout<1>::kSmemBytes) : -1;
 }

@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from real_esrgan_tpu_torch.ops.fused_rdb import (
-    fused_rdb, lrelu, pack_rdb_weights, scalar_like,
+    fused_rdb, lrelu, pack_rdb_weights, scalar_like, split_rdb_weights,
 )
 
 
@@ -100,9 +100,11 @@ def _subpixel_upconv(x: torch.Tensor, weight: torch.Tensor,
 class ResidualDenseBlock(nn.Module):
     """5-conv dense block with a 0.2-scaled residual, on NCHW channels_last.
 
-    ``packed=True`` runs the fused kernel (``ops.fused_rdb``: the CUDA kernel
-    on a GPU, its plain version on the CPU); ``packed=False`` runs the five
-    concat convs as written in the reference."""
+    ``packed=True`` runs the fused kernel (``ops.fused_rdb``: on a GPU the
+    CUDA kernel on the tensor cores, float32 as three bfloat16 products of
+    weights split once a pack; on the CPU its plain version);
+    ``packed=False`` runs the five concat convs as written in the
+    reference."""
 
     def __init__(self, channels: int = 64, growth: int = 32, packed: bool = True,
                  device=None):
@@ -111,7 +113,7 @@ class ResidualDenseBlock(nn.Module):
         for k in range(5):
             out = growth if k < 4 else channels
             setattr(self, f"conv{k + 1}", Conv3x3(channels + k * growth, out, device))
-        self._packed_key, self._packed = None, None
+        self._packed_key, self._packed, self._split = None, None, None
 
     def convs(self):
         return [getattr(self, f"conv{k}") for k in range(1, 6)]
@@ -131,13 +133,27 @@ class ResidualDenseBlock(nn.Module):
             return pack()
         key = (dtype,) + tuple((p.device, p.data_ptr(), p._version) for p in params)
         if key != self._packed_key:
-            self._packed_key, self._packed = key, pack()
+            self._packed_key, self._packed, self._split = key, pack(), None
         return self._packed
+
+    def split_weights(self, packed):
+        """``split_rdb_weights`` of ``packed``, a float32 pack from
+        ``packed_weights``, which the float32 kernel reads.  The split of the
+        block's cached pack is made once and kept beside it; a new pack
+        (another dtype, changed parameters) drops both together, so the split
+        never outlives the weights it came from.  Any other pack is split
+        anew."""
+        if packed is not self._packed:
+            return split_rdb_weights(packed)
+        if self._split is None:
+            self._split = split_rdb_weights(packed)
+        return self._split
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.packed:
             packed = self.packed_weights(x.dtype)
-            y = fused_rdb(x.permute(0, 2, 3, 1).contiguous(), packed)
+            split = self.split_weights(packed) if x.is_cuda and x.dtype == torch.float32 else None
+            y = fused_rdb(x.permute(0, 2, 3, 1).contiguous(), packed, split)
             return y.permute(0, 3, 1, 2)
         o1 = lrelu(self.conv1(x))
         o2 = lrelu(self.conv2(torch.cat([x, o1], 1)))

@@ -2,10 +2,15 @@
 
 ``fused_rdb`` computes one whole RDB forward (five dense 3x3 convs, LeakyReLU
 on the first four, 0.2-scaled residual) in one launch of a hand-written CUDA
-kernel of ``csrc/fused_rdb.cu``: bfloat16 on the tensor cores, float32 on
-CUDA cores.  It is the hot loop of the generator: 69 launches per forward,
-about 93% of its FLOPs.  ``rdb_plan`` states each kernel's tile and shared
-memory; the wrapper holds the built kernel to it.
+kernel of ``csrc/fused_rdb.cu``, on the tensor cores in both dtypes:
+bfloat16 as it is, float32 as three bfloat16 products.  The tensor cores
+take float32 only as TF32, which breaks the f32 bound of 1e-4, so each f32
+operand ``a`` is split into ``hi = bf16(a)`` and ``lo = bf16(a - hi)``
+(``split_bf16``) and each product is ``hi*hi + hi*lo + lo*hi`` summed in
+f32.  The weights are split once a pack (``split_rdb_weights``), the
+activations inside the kernel.  It is the hot loop of the generator: 69
+launches per forward, about 93% of its FLOPs.  ``rdb_plan`` states each
+kernel's tile and shared memory; the wrapper holds the built kernel to it.
 
 Arithmetic is the packed formulation of the flax block
 (real_esrgan_tpu/models/rrdbnet.py, ResidualDenseBlock): a concat conv
@@ -39,38 +44,40 @@ HALO = 5  # five chained 3x3 convs
 def rdb_plan(dtype: torch.dtype) -> dict:
     """The block plan of ``csrc/fused_rdb.cu``'s kernel for ``dtype``.
 
-    ``tile`` is the output tile side T of one block; ``buffers`` the bytes
-    of each shared-memory buffer: the x tile with its halo (side T + 10, 64
-    channels), o1..o4 (sides T + 8 .. T + 2, 32 channels) and, for bfloat16,
-    the ring of two weight slots of 3 taps x 32 input channels x 64 columns;
-    ``smem_bytes`` their sum.  For bfloat16, ``stages`` gives each stage's implicit GEMM: region side and
-    pixels, fragments of 16 pixels, output columns, and how the warps share
-    it: a warp computes 32 columns, so the warps form ``warp_groups`` groups
-    (one a 32-column slice), and warp w of a group of g takes fragments
-    w, w + g, ..., at most ``units_per_warp``.
+    Both dtypes run one schedule on the tensor cores, with ``products`` bf16
+    products a fragment pair: 1 for bfloat16, 3 for float32 (hi*hi, hi*lo,
+    lo*hi).  ``tile`` is the output tile side T of one block; ``planes`` the
+    bf16 planes of each shared-memory buffer (float32: a hi and a lo plane in
+    the same layout); ``buffers`` the bytes of each buffer: the x tile with
+    its halo (side T + 10, 64 channels), o1..o4 (sides T + 8 .. T + 2, 32
+    channels) and the ring of two weight slots of 3 taps x 32 input channels x
+    64 columns, in as many planes; ``smem_bytes`` their sum.  ``stages`` gives
+    each stage's implicit GEMM: region side and pixels, fragments of 16
+    pixels, output columns, and how the warps share it: a warp computes 32
+    columns, so the warps form ``warp_groups`` groups (one a 32-column
+    slice), and warp w of a group of g takes fragments w, w + g, ..., at most
+    ``units_per_warp``.
     """
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_rdb takes float32 or bfloat16, not {dtype}")
-    c, g = KERNEL_CHANNELS, KERNEL_GROWTH
-    size = torch.finfo(dtype).bits // 8
-    tile = 16 if dtype == torch.bfloat16 else 8
+    c, g, warps = KERNEL_CHANNELS, KERNEL_GROWTH, 8
+    split = dtype == torch.float32
+    planes, tile = (2, 8) if split else (1, 16)
+    plane_bytes = 2  # every plane holds bf16
     sides = [tile + 2 * (HALO - k) for k in range(6)]  # x, o1..o4, the output tile
-    buffers = {("x" if k == 0 else f"o{k}"): sides[k] ** 2 * (c if k == 0 else g) * size
+    buffers = {("x" if k == 0 else f"o{k}"): sides[k] ** 2 * (c if k == 0 else g) * planes * plane_bytes
                for k in range(5)}
-    plan = {"tile": tile, "threads": 512, "buffers": buffers}
-    if dtype == torch.bfloat16:
-        warps = 8
-        buffers["weight_ring"] = 2 * 3 * g * c * size
-        stages = []
-        for k in range(1, 6):
-            frags, columns = -(-sides[k] ** 2 // 16), g if k < 5 else c
-            groups = columns // g
-            stages.append({"side": sides[k], "pixels": sides[k] ** 2, "fragments": frags,
-                           "columns": columns, "warp_groups": groups,
-                           "units_per_warp": -(-frags // (warps // groups))})
-        plan.update(threads=32 * warps, warps=warps, stages=stages)
-    plan["smem_bytes"] = sum(buffers.values())
-    return plan
+    buffers["weight_ring"] = 2 * 3 * g * c * planes * plane_bytes
+    stages = []
+    for k in range(1, 6):
+        frags, columns = -(-sides[k] ** 2 // 16), g if k < 5 else c
+        groups = columns // g
+        stages.append({"side": sides[k], "pixels": sides[k] ** 2, "fragments": frags,
+                       "columns": columns, "warp_groups": groups,
+                       "units_per_warp": -(-frags // (warps // groups))})
+    return {"tile": tile, "products": 3 if split else 1, "planes": planes,
+            "threads": 32 * warps, "warps": warps, "buffers": buffers, "stages": stages,
+            "smem_bytes": sum(buffers.values())}
 
 
 def pack_rdb_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -97,6 +104,26 @@ def pack_rdb_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Ten
     for i, b in enumerate(biases):
         bias[i, :b.shape[0]] = b.float()
     return tuple(weights) + (bias,)
+
+
+def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t`` as two bfloat16 parts: ``hi = bf16(t)``, ``lo = bf16(t - hi)``.
+
+    ``t - hi`` is exact in f32, so ``hi + lo`` keeps 16 of t's 24 significant
+    bits; the kernel splits its activations the same way.  Elementwise IEEE
+    operations only, so the parts are the same bits on the CPU and the card."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
+
+
+def split_rdb_weights(packed: Sequence[torch.Tensor]
+                      ) -> Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]:
+    """The five float32 weights of ``pack_rdb_weights`` as ``(hi, lo)``: five
+    bfloat16 hi parts and five lo parts (``split_bf16``), which the float32
+    kernel reads.  Split once a pack: ``ResidualDenseBlock`` keeps the split
+    beside its pack and drops both together."""
+    parts = [split_bf16(w) for w in packed[:5]]
+    return tuple(hi for hi, _ in parts), tuple(lo for _, lo in parts)
 
 
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -140,7 +167,7 @@ def rdb_plain(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _check(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> None:
+def _check(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_rdb takes float32 or bfloat16, not {x.dtype}")
     if x.dim() != 4 or x.shape[-1] != KERNEL_CHANNELS:
@@ -161,17 +188,31 @@ def _check(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> None:
     if tuple(bias.shape) != (5, KERNEL_CHANNELS) or bias.dtype != torch.float32 or \
             bias.device != x.device or not bias.is_contiguous():
         raise ValueError("packed bias must be contiguous (5, 64) float32 on x's device")
-    # the kernel reads x in 16-byte vectors and weights in 4- or 8-byte pairs
-    for name, t in [("weight", w) for w in weights] + [("bias", bias)]:
+    parts = []
+    if split is not None:
+        if x.dtype != torch.float32:
+            raise ValueError("only the float32 kernel takes split weights")
+        if len(split) != 2 or any(len(part) != 5 for part in split):
+            raise ValueError("split must be split_rdb_weights' (hi, lo), five weights each")
+        for name, part in zip(("hi", "lo"), split):
+            for s, (t, w) in enumerate(zip(part, weights)):
+                if t.shape != w.shape or t.dtype != torch.bfloat16 or \
+                        t.device != x.device or not t.is_contiguous():
+                    raise ValueError(f"split {name} weight {s} must be contiguous "
+                                     f"{tuple(w.shape)} bfloat16 on {x.device}, got "
+                                     f"{tuple(t.shape)} {t.dtype} on {t.device}")
+                parts.append((f"split {name}", t))
+    # the kernel reads x and the weights in 16-byte chunks
+    for name, t in [("packed weight", w) for w in weights] + [("packed bias", bias)] + parts:
         if t.data_ptr() % 16:
-            raise ValueError(f"packed {name} must start on a 16-byte boundary")
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("fused_rdb")
     if lib.fused_rdb_forward.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        lib.fused_rdb_forward.argtypes = [i] + [vp] * 8 + [i, i, i, vp]
+        lib.fused_rdb_forward.argtypes = [i] + [vp] * 13 + [i, i, i, vp]
         lib.fused_rdb_forward.restype = i
         for fn in (lib.fused_rdb_tile, lib.fused_rdb_smem_bytes):
             fn.argtypes, fn.restype = [i], i
@@ -192,13 +233,16 @@ def built_rdb_plan(dtype: torch.dtype) -> dict:
     return {"tile": lib.fused_rdb_tile(code), "smem_bytes": lib.fused_rdb_smem_bytes(code)}
 
 
-def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> torch.Tensor:
+def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None) -> torch.Tensor:
     """One RDB forward on NHWC ``x`` (B, H, W, 64), float32 or bfloat16.
 
     ``packed`` is ``pack_rdb_weights(..., dtype=x.dtype)``.  A CPU tensor
     goes through ``rdb_plain``; a CUDA tensor through its dtype's CUDA kernel
-    (bfloat16: tensor cores; float32: CUDA cores), which adds one to
-    ``fused_rdb.launches``, or raises: there is no fallback.
+    on the tensor cores (float32 as three bfloat16 products), which adds one
+    to ``fused_rdb.launches``, or raises: there is no fallback.  The float32
+    kernel reads the weights as ``split = split_rdb_weights(packed)``; pass
+    it to split them once, or the call splits them itself (some twenty
+    elementwise launches).  bfloat16 takes no split.
 
     The kernel has no backward.  On a CUDA tensor with autograd on and
     ``x`` or a packed tensor requiring grad, it raises rather than return an
@@ -208,19 +252,25 @@ def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> torch.Tensor:
         return rdb_plain(x, packed)
     if x.device.type != "cuda":
         raise ValueError(f"fused_rdb runs on cpu or cuda, not {x.device}")
-    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in packed)):
+    tensors = [*packed, *(t for part in split or () for t in part)]
+    if torch.is_grad_enabled() and (x.requires_grad or any(t.requires_grad for t in tensors)):
         raise RuntimeError("fused_rdb: the CUDA kernel has no backward, so its output would "
                            "carry no gradient; train with Generator(packed=False) or the "
                            "plain math (rdb_plain), or run the forward under torch.no_grad()")
-    _check(x, packed)
+    if x.dtype == torch.float32 and split is None:
+        split = split_rdb_weights(packed)
+    _check(x, packed, split)
     lib = _library()
     b, h, w, _ = x.shape
+    *weights, bias = packed
+    hi, lo = split if split is not None else (weights, [None] * 5)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_rdb_forward(_DTYPE_CODES[x.dtype], x.data_ptr(),
-                                    *[t.data_ptr() for t in packed], out.data_ptr(),
-                                    b, h, w, stream)
+                                    *[t.data_ptr() for t in hi],
+                                    *[None if t is None else t.data_ptr() for t in lo],
+                                    bias.data_ptr(), out.data_ptr(), b, h, w, stream)
     if err != 0:
         raise RuntimeError(f"fused_rdb kernel launch failed with CUDA error {err}")
     fused_rdb.launches += 1

@@ -5,11 +5,13 @@ JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Bounds: f32 1e-4 (summation order only, TF32 off); bf16 atol/rtol 2e-2 (one
-rounding to bf16 after an f32 sum taken in another order); the conv's copy
-modes are exact.  The RDB kernel's bf16 shapes (output tile T=16) take ragged
-edges, images narrower or shorter than a tile, a block whose last fragment is
-clamped, and a batch of three.
+Bounds: f32 1e-4 (TF32 off; the RDB kernel's three bf16 products of split
+operands and the order of its sums); bf16 atol/rtol 2e-2 (one rounding to
+bf16 after an f32 sum taken in another order); the conv's copy modes are
+exact.  The RDB kernel's shapes (output tile T=16 in bf16, T=8 in f32) take
+ragged edges, images narrower or shorter than a tile, a block whose last
+fragment is clamped, and a batch of three; f32 also inputs at the trunk's
+magnitude (|x| up to 60), where the split has the least room.
 """
 
 import os
@@ -18,10 +20,13 @@ import pytest
 import torch
 
 from real_esrgan_tpu_torch.models import Generator
+from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops.conv3x3 import (
     built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
 )
-from real_esrgan_tpu_torch.ops.fused_rdb import fused_rdb, pack_rdb_weights, rdb_plain
+from real_esrgan_tpu_torch.ops.fused_rdb import (
+    built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan, split_bf16, split_rdb_weights,
+)
 from real_esrgan_tpu_torch.ops.mm_probe import (
     built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
 )
@@ -91,6 +96,80 @@ def test_fused_rdb_counts_each_launch(cuda, dtype):
     assert fused_rdb.launches == before + 2
     rdb_plain(x, packed)
     assert fused_rdb.launches == before + 2
+
+
+def _trained_packed(dtype, device, name="trunk.11.rdb2"):
+    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    convs = [(state[f"{name}.conv{k}.weight"], state[f"{name}.conv{k}.bias"]) for k in range(1, 6)]
+    return [t.to(device) for t in pack_rdb_weights([w for w, _ in convs], [b for _, b in convs],
+                                                   64, 32, dtype)]
+
+
+def _trunk_input(shape, device, seed, peak=60.0):
+    """N(0, 1) scaled so that its largest magnitude is ``peak``: the trunk's
+    activations reach |x| = 57 in the full-depth generator on the test image."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=device)
+    return x * (peak / x.abs().max())
+
+
+@pytest.mark.parametrize("name", ["trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3"])
+def test_fused_rdb_f32_matches_plain_at_trunk_magnitude(cuda, name):
+    packed = _trained_packed(torch.float32, cuda, name)
+    x = _trunk_input((2, 67, 93, 64), cuda, seed=6)
+    out = fused_rdb(x, packed, split_rdb_weights(packed))
+    torch.testing.assert_close(out, rdb_plain(x, packed), atol=1e-4, rtol=0)
+
+
+# against the f32 kernel's tile of 8: smaller than a tile, three ragged
+# images, widths and heights that are not multiples of 8, one tile exactly
+@pytest.mark.parametrize("shape", [(1, 5, 3, 64), (3, 17, 40, 64), (1, 9, 13, 64), (2, 24, 21, 64),
+                                   (1, 7, 33, 64), (1, 8, 8, 64)],
+                         ids=["smaller_than_a_tile", "three_ragged", "9x13", "24x21", "7x33",
+                              "one_tile"])
+def test_fused_rdb_f32_ragged_against_its_tile(cuda, shape):
+    assert rdb_plan(torch.float32)["tile"] == 8
+    packed = _trained_packed(torch.float32, cuda)
+    x = _trunk_input(shape, cuda, seed=7)
+    before = fused_rdb.launches
+    out = fused_rdb(x, packed, split_rdb_weights(packed))
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before + 1 and torch.isfinite(out).all()
+    torch.testing.assert_close(out, rdb_plain(x, packed), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_rdb_launches_at_its_plan(cuda, dtype):
+    plan = rdb_plan(dtype)
+    assert built_rdb_plan(dtype) == {"tile": plan["tile"], "smem_bytes": plan["smem_bytes"]}
+
+
+def test_split_bf16_on_the_card_equals_the_cpu(cuda):
+    g = torch.Generator().manual_seed(8)
+    t = torch.randn(1 << 16, generator=g) * torch.exp2(torch.randint(-30, 30, (1 << 16,), generator=g))
+    for cpu_part, card_part in zip(split_bf16(t), split_bf16(t.to(cuda))):
+        assert torch.equal(card_part.cpu(), cpu_part)
+    packed = _trained_packed(torch.float32, "cpu")
+    on_card = split_rdb_weights([w.to(cuda) for w in packed])
+    for cpu_part, card_part in zip(split_rdb_weights(packed), on_card):
+        assert all(torch.equal(c.cpu(), p) for p, c in zip(cpu_part, card_part))
+
+
+def test_fused_rdb_split_follows_load_state_dict(cuda):
+    """The block's split is cut from its current weights: after
+    load_state_dict the f32 kernel computes the new weights' RDB."""
+    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    block = ResidualDenseBlock(64, 32, device=cuda).eval()
+    x = _trunk_input((1, 30, 44, 64), cuda, seed=9).permute(0, 3, 1, 2)
+    for name in ("trunk.0.rdb1", "trunk.22.rdb3"):
+        block.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                               if k.startswith(name + ".")})
+        with torch.no_grad():
+            out = block(x)
+            out_again = block(x)
+        ref = rdb_plain(x.permute(0, 2, 3, 1).contiguous(), _trained_packed(torch.float32, cuda, name))
+        torch.testing.assert_close(out.permute(0, 2, 3, 1), ref, atol=1e-4, rtol=0)
+        assert torch.equal(out, out_again)
 
 
 def test_fused_rdb_rejects_what_the_kernel_does_not_take(cuda):

@@ -37,5 +37,5 @@ def test_port_and_chip_smoke_import_no_jax():
     for module in ("ops.fused_rdb", "ops._build", "models.rrdbnet", "models.convert",
                    "train.checkpoint", "utils.imgio", "parallel.tiling", "serve", "inference",
                    "ops.resize", "ops.conv3x3", "ops.mm_probe", "utils.meters", "metrics.niqe",
-                   "test", "scripts.eval_pair", "tools.conv_exp"):
+                   "test", "scripts.eval_pair", "tools.conv_exp", "tools.rdb_probe"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

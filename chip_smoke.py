@@ -8,10 +8,11 @@
    with nvcc (one process a source, all at once), printing each source's
    build seconds, registers, spills and shared memory, the tensor-core, TMA,
    mbarrier and shared-memory instructions of each kernel as ``cuobjdump
-   -sass`` shows them (both RDB kernels, bf16 and the f32 split, must have
-   ``HMMA`` and no ``LDL``/``STL``; every ``mm_grid`` and ``conv3x3`` kernel
-   ``HGMMA`` and ``UTMALDG`` and no ``HMMA``; no build may warn C7520,
-   serialised ``wgmma``), the RDB kernels' block plan (``rdb_plan``),
+   -sass`` shows them (the bf16 RDB kernel, every ``mm_grid`` and every
+   ``conv3x3`` kernel must have ``HGMMA`` and ``UTMALDG`` and no ``HMMA``,
+   the f32 RDB kernel ``HMMA``; neither RDB kernel nor ``conv3x3`` may have
+   ``LDL``/``STL``; no build may warn C7520, serialised ``wgmma``), the RDB
+   kernels' block plan (``rdb_plan``: tile, threads, shared memory, ring),
    ``mm_grid``'s at the gate's shapes (``mm_grid_plan``) and ``conv3x3``'s
    at the tool's default shape (``conv3x3_plan``), each beside what the
    built library reports;
@@ -20,8 +21,8 @@
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
    the ragged crop the committed JAX golden output covers), with every
    kernel's launch count set to 0 just before and read just after, and the
-   shape of every input the RDB kernel gets recorded; one more float32
-   forward of the test image keeps the inputs of three RDBs of the trunk;
+   shape of every input the RDB kernel gets recorded; one more forward of
+   the test image in each dtype keeps the inputs of all 69 RDBs;
 4. checks the outputs: finite, in [0, 1], the f32 crop within 1e-4 of the
    JAX golden output, the bf16 crop's PSNR against it, and the tiled image's
    interior seam error against a whole-image forward; profiles one warm
@@ -42,10 +43,10 @@
 7. holds the RDB kernel against its plain PyTorch version on the card, with
    the trained weights of several RDBs, at every shape the serving and the
    evaluation path gave it in each dtype, a ragged batch, a block smaller
-   than a tile and a batch of three ragged images, and in float32 on the
-   real trunk activations kept in step 3 (|x| up to about 57, where the
-   kernel's three bf16 products have the least room), and checks that it
-   raises under autograd (it has no backward);
+   than a tile and a batch of three ragged images, and in each dtype on the
+   real inputs of all 69 RDBs kept in step 3 (|x| up to about 59, where the
+   f32 kernel's three bf16 products have the least room), and checks that
+   it raises under autograd (it has no backward);
 8. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
@@ -80,7 +81,8 @@ from real_esrgan_tpu_torch.ops.conv3x3 import (
     built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
 )
 from real_esrgan_tpu_torch.ops.fused_rdb import (
-    built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan, split_rdb_weights,
+    BUILT_PLAN_KEYS, box_rdb_weights, built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain,
+    rdb_plan, split_rdb_weights,
 )
 from real_esrgan_tpu_torch.ops.mm_probe import (
     built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
@@ -107,7 +109,7 @@ RDB_FLOP_PER_PIXEL = 479_232
 RDB_WEIGHTS = RDB_FLOP_PER_PIXEL // 2
 # H100 SXM, NVIDIA data sheet: dense bf16 tensor-core rate, f32 rate on the
 # CUDA cores, HBM3 rate.  K1 runs on the tensor cores in both dtypes: bf16 as
-# it is, f32 as three bf16 products (hi*hi + hi*lo + lo*hi), so its operation
+# it is (wgmma), f32 as three bf16 products (hi*hi + hi*lo + lo*hi), so its operation
 # bound is PRODUCTS x its FLOPs at the bf16 rate; the f32 record gives beside
 # it the bound of the same FLOPs on the CUDA cores.
 PEAK_BF16_FLOPS = 989e12
@@ -118,7 +120,7 @@ CHECK_RDBS = ("trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3")
 TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}  # atol, rtol
 DTYPE_NAME = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # K1's kernels in csrc/fused_rdb.cu, as the profiler names them
-RDB_KERNEL_NAMES = ("rdb_bf16_kernel", "rdb_f32_split_kernel")
+RDB_KERNEL_NAMES = ("rdb_bf16_wgmma_kernel", "rdb_f32_split_kernel")
 # the kernels sass_counts names, by the name in their mangled symbols
 KERNEL_NAMES = RDB_KERNEL_NAMES + ("mm_grid_kernel", "mm_resident_kernel", "conv3x3_kernel")
 # SASS instructions counted per kernel: tensor cores (HMMA: mma.sync; HGMMA:
@@ -219,13 +221,14 @@ def build_kernels() -> None:
         check(sorted(sass["fused_rdb"]) == sorted(RDB_KERNEL_NAMES),
               f"fused_rdb.cu builds {sorted(sass['fused_rdb'])}, not {RDB_KERNEL_NAMES}")
     for kernel, ops in sass["fused_rdb"].items():
-        check(ops["HMMA"] > 0 and ops["LDL"] + ops["STL"] == 0,
-              f"{kernel} is not a tensor-core kernel free of local memory: {ops}")
-    hopper = {k: v for name in ("mm_probe", "conv3x3") for k, v in sass[name].items()
-              if k.startswith(("mm_grid_kernel", "conv3x3_kernel"))}
+        check(ops["LDL"] + ops["STL"] == 0, f"{kernel} uses local memory: {ops}")
+    f32_rdb = sass["fused_rdb"].get("rdb_f32_split_kernel", {"HMMA": 1})
+    check(f32_rdb["HMMA"] > 0, f"rdb_f32_split_kernel is not an mma.sync kernel: {f32_rdb}")
+    hopper = {k: v for name in ("mm_probe", "conv3x3", "fused_rdb") for k, v in sass[name].items()
+              if k.startswith(("mm_grid_kernel", "conv3x3_kernel", "rdb_bf16_wgmma_kernel"))}
     built = sorted(k.split("<")[0] for k in hopper)
-    check(not sass["mm_probe"] or built == ["conv3x3_kernel"] * 5 + ["mm_grid_kernel"] * 4,
-          f"TMA + wgmma kernels built: {sorted(hopper)}")
+    check(not sass["mm_probe"] or built == ["conv3x3_kernel"] * 5 + ["mm_grid_kernel"] * 4
+          + ["rdb_bf16_wgmma_kernel"], f"TMA + wgmma kernels built: {sorted(hopper)}")
     for kernel, ops in hopper.items():
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
               f"{kernel} is not a TMA + wgmma kernel: {ops}")
@@ -234,9 +237,9 @@ def build_kernels() -> None:
     rdb_blocks = {DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)} for d in TOLERANCE}
     emit(fused_rdb_blocks=rdb_blocks)
     for name, plan in rdb_blocks.items():
-        check(plan["built"] == {"tile": plan["tile"], "smem_bytes": plan["smem_bytes"]},
-              f"fused_rdb {name}: built {plan['built']}, rdb_plan tile {plan['tile']}, "
-              f"smem_bytes {plan['smem_bytes']}")
+        stated = {key: plan[key] for key in BUILT_PLAN_KEYS}
+        check(plan["built"] == stated,
+              f"fused_rdb {name}: built {plan['built']}, rdb_plan {stated}")
     blocks = {f"{m}x{k}x{n}": {"plan": mm_grid_plan(m, k, n), "built": built_mm_grid_plan(m, k, n)}
               for m, k, n in conv_exp.GATE_SHAPES}
     emit(mm_grid_blocks=blocks)
@@ -264,9 +267,12 @@ def record_rdb_shapes(shapes: dict):
     return torch.nn.modules.module.register_module_forward_pre_hook(hook)
 
 
-def rdb_split(packed):
-    """The split weights the f32 kernel reads, or None for bf16."""
-    return split_rdb_weights(packed) if packed[0].dtype == torch.float32 else None
+def rdb_weights(packed) -> dict:
+    """The weights the dtype's kernel reads, made once a pack as the model
+    makes them: the f32 split or the bf16 boxes, as fused_rdb's keyword."""
+    if packed[0].dtype == torch.float32:
+        return {"split": split_rdb_weights(packed)}
+    return {"boxes": box_rdb_weights(packed)}
 
 
 def capture_trunk_inputs(pipe: SRPipeline, image: np.ndarray) -> dict:
@@ -284,25 +290,27 @@ def capture_trunk_inputs(pipe: SRPipeline, image: np.ndarray) -> dict:
     return inputs
 
 
-def check_trunk_activations(state_dict, inputs: dict) -> None:
-    """K1 f32 against rdb_plain on the real inputs of every RDB of the f32
-    tree forward (|x| up to about 58): the split's 16 bits have the least
-    room there, and N(0, 0.5^2) never reaches it.  A line for each of
-    CHECK_RDBS, and one for the worst of all 69."""
-    atol, rtol = TOLERANCE[torch.float32]
+def check_trunk_activations(state_dict, inputs: dict, dtype: torch.dtype) -> None:
+    """K1 against rdb_plain on the real inputs of every RDB of the tree
+    forward in ``dtype`` (|x| up to about 59): the f32 split's 16 bits have
+    the least room there, bf16 rounds in its largest steps, and N(0, 0.5^2)
+    reaches neither.  A line for each of CHECK_RDBS, and one for the worst
+    of all 69."""
+    atol, rtol = TOLERANCE[dtype]
     worst = {"max_abs_diff": -1.0}
     for name, x in inputs.items():
-        packed = rdb_pack(state_dict, name, torch.float32)
-        ok, err = within(fused_rdb(x, packed, rdb_split(packed)), rdb_plain(x, packed),
-                         TOLERANCE[torch.float32])
-        line = {"dtype": "f32", "rdb": name, "shape": list(x.shape),
+        packed = rdb_pack(state_dict, name, dtype)
+        ok, err = within(fused_rdb(x, packed, **rdb_weights(packed)), rdb_plain(x, packed),
+                         TOLERANCE[dtype])
+        line = {"dtype": DTYPE_NAME[dtype], "rdb": name, "shape": list(x.shape),
                 "max_abs_x": x.abs().max().item(), "max_abs_diff": err, "atol": atol,
                 "rtol": rtol, "ok": ok}
         if name in CHECK_RDBS:
             emit(k1_trunk_check=line)
         if err > worst["max_abs_diff"]:
             worst = line
-        check(ok, f"fused_rdb f32 {name} disagrees with rdb_plain on the trunk's activations: {err}")
+        check(ok, f"fused_rdb {DTYPE_NAME[dtype]} {name} disagrees with rdb_plain on the trunk's "
+                  f"activations: {err}")
     emit(k1_trunk_worst={"rdbs": len(inputs), **worst})
 
 
@@ -313,10 +321,10 @@ def check_kernels(state_dict, main_shapes: dict) -> None:
     for dtype, (atol, rtol) in TOLERANCE.items():
         for name in CHECK_RDBS:
             packed = rdb_pack(state_dict, name, dtype)
-            split = rdb_split(packed)
+            weights = rdb_weights(packed)
             for shape in sorted(main_shapes[dtype] | K1_EXTRA_SHAPES):
                 x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
-                out = fused_rdb(x, packed, split).float()
+                out = fused_rdb(x, packed, **weights).float()
                 ref = rdb_plain(x, packed).float()
                 torch.cuda.synchronize()
                 diff = (out - ref).abs()
@@ -472,19 +480,19 @@ def kernel_record(state_dict, dtype: torch.dtype, launches: int) -> dict:
     the larger of its tensor-core FLOPs (PRODUCTS x the RDB's) over the bf16
     rate and bytes over HBM's rate.  f32 adds ``cuda_core_bound_ms``, the
     RDB's FLOPs over the CUDA cores' f32 rate, and ``device_tc_tflops``, the
-    tensor-core FLOPs a second.  The f32 weights are split before the
-    timing, as the model splits them once a pack."""
+    tensor-core FLOPs a second.  The f32 weights are split, the bf16 ones
+    laid out as boxes, before the timing, as the model does once a pack."""
     shape = (1, 256, 512, 64)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = (torch.randn(shape, generator=gen, device="cuda") * 0.5).to(dtype)
     packed = rdb_pack(state_dict, "trunk.11.rdb2", dtype)
-    split = rdb_split(packed)
-    out, ref = fused_rdb(x, packed, split).float(), rdb_plain(x, packed).float()
+    weights = rdb_weights(packed)
+    out, ref = fused_rdb(x, packed, **weights).float(), rdb_plain(x, packed).float()
     atol, rtol = TOLERANCE[dtype]
     check(bool(((out - ref).abs() <= atol + rtol * ref.abs()).all()),
           f"fused_rdb {DTYPE_NAME[dtype]} disagrees with rdb_plain at {shape}")
     err = (out - ref).abs().max().item()
-    kernel, plain = (lambda: fused_rdb(x, packed, split)), (lambda: rdb_plain(x, packed))
+    kernel, plain = (lambda: fused_rdb(x, packed, **weights)), (lambda: rdb_plain(x, packed))
     ms, plain_ms = in_turns(kernel, plain, 10)
     plain_device_ms = graph_ms(plain, 10)
     device_ms = graph_ms(kernel, 10)
@@ -793,6 +801,7 @@ def main() -> int:
     golden = np.load(GOLDEN)
     launches, outputs = {}, {}
     main_shapes = {dtype: set() for dtype in TOLERANCE}
+    trunk_inputs = {}
     for dtype in (torch.bfloat16, torch.float32):
         pipe = SRPipeline(WEIGHTS, bfloat16=dtype == torch.bfloat16, device="cuda")
         hook = record_rdb_shapes(main_shapes)
@@ -805,8 +814,7 @@ def main() -> int:
                          "shapes": [list(s) for s in sorted(main_shapes[dtype])]})
         profile = profile_forward(pipe, tree)
         emit(profile={"dtype": DTYPE_NAME[dtype], "request": "tree forward", **profile})
-        if dtype == torch.float32:
-            trunk_inputs = capture_trunk_inputs(pipe, tree)
+        trunk_inputs[dtype] = capture_trunk_inputs(pipe, tree)
         check("device_busy_ms" not in profile or profile["fused_rdb_ms"] > 0,
               f"the {DTYPE_NAME[dtype]} profile names no kernel of {RDB_KERNEL_NAMES}")
         if dtype == torch.bfloat16:
@@ -825,8 +833,8 @@ def main() -> int:
     eval_launches = drive_eval(tree, main_shapes)
     check_niqe()
     check_kernels(state_dict, main_shapes)
-    check_trunk_activations(state_dict, trunk_inputs)
-    del trunk_inputs
+    for dtype in (torch.bfloat16, torch.float32):
+        check_trunk_activations(state_dict, trunk_inputs.pop(dtype), dtype)
     check_autograd_guard(state_dict)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())

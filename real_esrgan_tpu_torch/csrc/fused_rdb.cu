@@ -1,5 +1,6 @@
 // Fused ResidualDenseBlock forward for Hopper (sm_90a) on the tensor cores:
-// bf16 as it is, f32 as three bf16 products (hi*hi + hi*lo + lo*hi).
+// bf16 on TMA, mbarriers and wgmma; f32 as three bf16 products (hi*hi +
+// hi*lo + lo*hi) on ldmatrix and mma.sync.
 //
 // Replaces the Pallas TPU kernel real_esrgan_tpu/ops/pallas_rdb.py::fused_rdb
 // (pl.pallas_call at pallas_rdb.py:188).  One launch computes one whole RDB
@@ -17,28 +18,60 @@
 // pixel, 3x bf16's bound.  The halo recompute adds about 1.34x (bf16, T=16)
 // and 1.77x (f32, T=8) to the FLOPs actually executed.
 //
-// One schedule serves both dtypes (rdb_body<P>, P the products of a fragment
-// pair: 1 for bf16, 3 for f32).  Each of the five stages is an implicit GEMM
-// on mma.sync m16n8k16 fed by ldmatrix (mma_tile.cuh).  M is the stage's
-// region of pixels (24^2, 22^2, 20^2, 18^2, 16^2 at T=16), cut into
-// fragments of 16 pixels that may wrap across region rows; the tail fragment
-// reads a clamped pixel and stores nothing.  N is 32 (o1..o4) or 64 (o5).  K
-// is 9 taps x Cin of each source; a tap is a pointer offset into the
-// source's buffer, so no patch matrix is built.  Eight warps (one block of
-// 256 threads an SM) each compute 32 columns: in stages 1-4 all eight take
-// the fragments in turn, in stage 5 two groups of four take one column half
-// each.  Twelve warps spill at their 168-register cap and ran slower (bf16).
-// The weights (479 KB an RDB in bf16, more than an SM holds) stream from L2
-// through a ring of two slots: a slice is one tap row (3 taps) x 32 input
-// channels x N, 6 k-steps, and the next slice loads while the products of
-// this one run; every block reads each weight once, 60 slices and 60
-// barriers a tile.  Slices of one tap (135 barriers of 2-4 k-steps each) ran
-// slower on the card: the barrier and the pipeline's restart, not the tensor
-// cores, set the pace there.  Activations and the ring take 225,280 B of
-// shared memory at bf16, T=16, which leaves no room for a row skew: the
-// 16-byte chunks of each pixel's row (and of each weight row) are placed by
-// an XOR swizzle, so that the eight rows of an ldmatrix phase fall in eight
-// different bank groups.
+// Each of the five stages is an implicit GEMM: M is the stage's region of
+// pixels (T+8 .. T on a side), N is 32 (o1..o4) or 64 (o5), K is 9 taps x
+// Cin of each source; a tap is an offset into the source's buffer, so no
+// patch matrix is built.  Each source's conv is summed on its own, as the
+// numerics below need.  The 16-byte chunks of each pixel's row are placed
+// by an XOR swizzle, so that the eight rows of an ldmatrix phase fall in
+// eight different bank groups (two where a phase wraps a region row).
+//
+// bf16 (rdb_bf16_wgmma_kernel, namespace wg): T = 16, 384 threads, 230,520
+// B of shared memory.
+//   * x arrives as one 4-D TMA box (64, 26, 26, 1) at (0, x0 - 5, y0 - 5,
+//     b): TMA writes the 128-byte swizzle the ldmatrix reads want and the
+//     zeros outside the image, so there is no masking and no padded copy.
+//   * The weights (496 KB an RDB in boxes, more than an SM holds) stream
+//     from L2 as 124 boxes of 32 columns x 64 k, which the wrapper lays out
+//     once a pack already K-major and swizzled as a wgmma descriptor reads
+//     them (ops/fused_rdb.py::box_rdb_weights); one producer thread keeps a
+//     ring of seven 4 KB slots full with 1-D bulk copies on full/empty
+//     mbarriers.  No block-wide barrier is left inside a stage; only the
+//     four hand-offs between stages are a named barrier of the consumers.
+//   * Two consumer warpgroups take units of 64 region pixels, one wgmma
+//     m64 tile each: warpgroup g takes units g, g + 2, ...  A comes from
+//     registers: each warp loads its 16 tap-shifted pixels with ldmatrix.x4,
+//     since a tap's shift puts A's start inside a swizzle atom, which a
+//     descriptor cannot address, and a region row is not an affine run of
+//     the source's.  A k step issues one m64n32k16 wgmma for every unit of
+//     the warpgroup (two, one a column half, in stage 5) as one group, and
+//     the next step's fragments load while it runs.  Every unit count and
+//     step count is a compile-time constant, so no wgmma sits under a
+//     guard: a unit past the stage's count reads a clamped pixel and stores
+//     nothing, and an o's 288 k end in a half box of which two steps issue.
+//   * The producer warpgroup gives up its registers (setmaxnreg): 12 warps
+//     leave 168 a thread at launch, and the consumers hold up to five units
+//     of accumulators, their bf16 sums and two steps of fragments in 240.
+//     With a producer warp and no setmaxnreg (nine warps, also 168) they
+//     spill a kilobyte; with no producer at all (eight warps, 255) the
+//     consumers' own refills of the ring cost more than they gain.
+//   * k runs over 32-channel groups, then taps, then channels: the order of
+//     the mma.sync schedule and of the card's library convolution, so that
+//     the f32 sums round to bf16 as theirs do (tap-major k rounded a few
+//     elements differently, which cancellation at the trunk's magnitude
+//     showed as 0.03 on an output of 0.16).
+//   * What sets the pace (tools/rdb_probe.py): the m64n32k16 groups
+//     themselves.  Without any ldmatrix of A or any ring the kernel still
+//     takes twice its work at the tensor rate: small wgmma one step at a time
+//     leave the tensor pipe half idle.
+//
+// The mma.sync schedule (rdb_body<P>, P the products of a fragment pair)
+// fragments each region into 16 pixels that may wrap rows; eight warps (one
+// block of 256 threads an SM) each compute 32 columns; the weights stream
+// through a ring of two cp.async slots of one tap row x 32 input channels x
+// N, 60 slices and 60 block-wide barriers a tile.  P = 3 is the f32 kernel;
+// P = 1, the earlier bf16 kernel, is instantiated by no shipped kernel and
+// kept so that tools/rdb_probe.py can build it beside the wgmma kernel.
 //
 // f32 (rdb_f32_split_kernel, P = 3): the tensor cores take f32 only as TF32
 // (10 mantissa bits), which breaks the f32 path's bound of 1e-4 from the JAX
@@ -77,6 +110,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "mma_tile.cuh"
 
 namespace {
@@ -514,10 +548,323 @@ __device__ __forceinline__ void rdb_body(const Params& p, bf16* smem) {
   stage<P, 5>(p, smem, slice, ty0, tx0);
 }
 
-__global__ void __launch_bounds__(kThreads, 1) rdb_bf16_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  rdb_body<1>(p, reinterpret_cast<bf16*>(smem_raw));
+// ---- bf16: TMA, mbarriers and wgmma ---------------------------------------
+
+namespace wg {
+
+constexpr int kTile = 16;
+constexpr int kGroups = 2;                        // consumer warpgroups
+constexpr int kConsumers = 128 * kGroups;
+constexpr int kThreads = kConsumers + 128;        // and a producer warpgroup
+// Registers a thread after the producer gives up its own (setmaxnreg): 12
+// warps leave 168 a thread at launch, three warps sharing each quarter of
+// the SM's file.
+constexpr int kProducerRegisters = 24;
+constexpr int kConsumerRegisters = 240;
+static_assert(kGroups * 128 * kConsumerRegisters + 128 * kProducerRegisters <= 65536,
+              "more registers than an SM has");
+constexpr int kUnitPixels = 64;                   // one wgmma m64 tile of region pixels
+constexpr int kBoxK = 64;                         // k of a weight box: 128 bytes a row
+constexpr int kBoxBytes = kG * kBoxK * 2;         // 32 columns x 64 k: 4096
+constexpr int kRingSlots = 7;
+constexpr int kAlign = 1024;                      // the 128-byte swizzle repeats every 1024 bytes
+
+__host__ __device__ constexpr int side(int s) { return kTile + 2 * (kHalo - s); }
+__host__ __device__ constexpr int row_bytes(int s) { return channels(s) * 2; }
+__host__ __device__ constexpr int buffer_bytes(int s) { return side(s) * side(s) * row_bytes(s); }
+// Boxes of one (consumer, source) pair and one 32-column half: 9 Cin k in
+// whole boxes of 64, 9 for x and 5 (the last half zeros) for an o.
+__host__ __device__ constexpr int boxes(int s) { return (9 * channels(s) + kBoxK - 1) / kBoxK; }
+__host__ __device__ constexpr int halves(int k) { return k < 5 ? 1 : 2; }
+// The stream's index of the first box of (consumer k, source s).
+__host__ __device__ constexpr int first_box(int k, int s) {
+  return s > 0   ? first_box(k, s - 1) + halves(k) * boxes(s - 1)
+         : k > 1 ? first_box(k - 1, k - 2) + halves(k - 1) * boxes(k - 2)
+                 : 0;
 }
+constexpr int kStreamBoxes = first_box(5, 4) + halves(5) * boxes(4);  // 124
+
+// Shared memory from the 1024-aligned base: the ring, x, o1..o4, the
+// mbarriers (full and empty a slot, and x's).
+constexpr int kXOffset = kRingSlots * kBoxBytes;
+__host__ __device__ constexpr int buf_offset(int s) {
+  return s == 0 ? kXOffset : buf_offset(s - 1) + buffer_bytes(s - 1);
+}
+constexpr int kBarrierOffset = buf_offset(5);
+constexpr int kSmemBytes = kAlign + kBarrierOffset + 8 * (2 * kRingSlots + 1);
+static_assert(kStreamBoxes == 124, "the weight stream of box_rdb_weights");
+static_assert(kXOffset % kAlign == 0, "TMA's 128-byte swizzle needs x on a 1024-byte boundary");
+static_assert(buf_offset(1) % 128 == 0 && buf_offset(2) % 128 == 0 && buf_offset(3) % 128 == 0 &&
+                  buf_offset(4) % 128 == 0,
+              "o1..o4 on 128-byte lines, for the swizzle's bank groups");
+static_assert(kSmemBytes <= 232448, "more shared memory than a block may have");
+
+// The shared-memory addresses of a slot's mbarriers from the block's base:
+// full (its box has landed) and empty (every consumer thread is done with it).
+__device__ __forceinline__ uint32_t full_at(uint32_t base, int s) {
+  return base + kBarrierOffset + 8 * s;
+}
+__device__ __forceinline__ uint32_t empty_at(uint32_t base, int s) {
+  return base + kBarrierOffset + 8 * (kRingSlots + s);
+}
+
+template <int K>
+struct Stage {
+  static constexpr int kSide = side(K);
+  static constexpr int kPixels = kSide * kSide;
+  static constexpr int kUnits = (kPixels + kUnitPixels - 1) / kUnitPixels;  // 9 8 7 6 4
+  static constexpr int kU = (kUnits + kGroups - 1) / kGroups;               // 5 4 4 3 2
+  static constexpr int kN = kG * halves(K);                                // 32 or 64 columns
+  float acc[kU][kN / 2];                 // one source's conv, f32, wgmma's layout, half by half
+  __nv_bfloat162 sum[kU][kN / 4];        // the running bf16 sum over the sources, pairs of acc
+};
+
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&f)[N][4]) {
+#pragma unroll
+  for (int u = 0; u < N; ++u) hopper::fence_fragment(f[u]);
+}
+
+template <int K>
+__device__ __forceinline__ void fence_acc(Stage<K>& st) {
+#pragma unroll
+  for (int u = 0; u < Stage<K>::kU; ++u) hopper::fence_operands(st.acc[u]);
+}
+
+// Adds source S's conv to stage K's running sum.  The k of the pair runs
+// over groups of 32 input channels, then taps, then the group's channels
+// (for an o, one group: tap * 32 + c), in boxes of 64; step t = 4 b + j of
+// box b is k 16 t .. + 15: group t / 18, tap (t % 18) / 2, channels 16 (t %
+// 2) .. + 15 of the group.  Each step issues one m64n32k16 wgmma a unit and
+// 32-column half (two halves, two boxes, in stage 5), all as one group, on
+// fragments loaded while the step before ran (every unit's 16 tap-shifted
+// pixels of this warp, by ldmatrix.x4); the next step's fragments load
+// while it runs.  A box's slots are released once its last step is done.
+// Then the f32 conv is rounded to bf16 and added to the bf16 sum.
+template <int K, int S>
+__device__ __forceinline__ void add_source(Stage<K>& st, uint32_t base, int g, int w, int lane) {
+  using St = Stage<K>;
+  constexpr int kU = St::kU, kH = halves(K), kSin = side(S), kCin = channels(S), kRow = row_bytes(S);
+  constexpr int kShift = K - S - 1;  // stage K's region inside source S's buffer, less the tap
+  constexpr int kBoxes = boxes(S);
+  constexpr int kSteps = 9 * kCin / 16;  // 36 for x, 18 for an o: the last box of an o is half used
+  constexpr int kFirst = first_box(K, S);
+  const uint32_t in = base + buf_offset(S);
+  const int hi = lane >> 4;
+  int p0[kU];  // this lane's A row, a pixel of the region, in source S's buffer at tap (0, 0)
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+    const int m = min((g + kGroups * u) * kUnitPixels + 16 * w + (lane & 15), St::kPixels - 1);
+    p0[u] = (m / St::kSide + kShift) * kSin + m % St::kSide + kShift;
+  }
+
+  auto load = [&](uint32_t (&f)[kU][4], int t) {
+    const int group = t / 18, tap = (t % 18) >> 1;
+    const int chunk = group * (kG / 8) + ((t & 1) << 1) + hi;
+    const int off = (tap / 3) * kSin + tap % 3;
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int q = p0[u] + off;
+      const int swz = kCin == kC ? (q & 7) : ((q >> 1) & 3);
+      hopper::ldmatrix_x4(f[u], in + q * kRow + ((chunk ^ swz) << 4));
+    }
+  };
+  auto issue = [&](uint32_t (&f)[kU][4], int t) {
+    const int box = kFirst + (t / 4) * kH;
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      const uint64_t desc =
+          hopper::smem_desc(base + ((box + h) % kRingSlots) * kBoxBytes + 32 * (t % 4), 16, 1024);
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        hopper::WgmmaRS<kG>::mma(*reinterpret_cast<float(*)[16]>(&st.acc[u][16 * h]), f[u], desc,
+                                 t > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  auto wait_full = [&](int b) {
+#pragma unroll
+    for (int h = 0; h < kH; ++h) {
+      const int box = kFirst + b * kH + h;
+      hopper::mbar_wait_at(full_at(base, box % kRingSlots), (box / kRingSlots) & 1);
+    }
+  };
+  auto release = [&](int b) {
+#pragma unroll
+    for (int h = 0; h < kH; ++h)
+      hopper::mbar_arrive_at(empty_at(base, (kFirst + b * kH + h) % kRingSlots));
+  };
+
+  uint32_t frag[2][kU][4];
+  load(frag[0], 0);
+  fence_acc(st);
+#pragma unroll
+  for (int t = 0; t < kSteps; ++t) {
+    if (t % 4 == 0) wait_full(t / 4);
+    issue(frag[t % 2], t);
+    hopper::wgmma_wait<1>();  // step t - 1 is done: its box and its fragments are free
+    if (t % 4 == 0 && t > 0) release(t / 4 - 1);
+    if (t + 1 < kSteps) {
+      fence_frags(frag[(t + 1) % 2]);
+      load(frag[(t + 1) % 2], t + 1);
+    }
+  }
+  hopper::wgmma_wait<0>();
+  fence_frags(frag[0]);
+  fence_frags(frag[1]);
+  fence_acc(st);
+  release(kBoxes - 1);
+
+  // the source's conv rounded to bf16, added to the running bf16 sum
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+#pragma unroll
+    for (int e = 0; e < St::kN / 4; ++e) {
+      const __nv_bfloat162 v = __floats2bfloat162_rn(st.acc[u][2 * e], st.acc[u][2 * e + 1]);
+      if constexpr (S == 0) {
+        st.sum[u][e] = v;
+      } else {
+        const float2 old = __bfloat1622float2(st.sum[u][e]), add = __bfloat1622float2(v);
+        st.sum[u][e] = __floats2bfloat162_rn(old.x + add.x, old.y + add.y);
+      }
+    }
+}
+
+// Stage K: o_K (K = 1..4) into its buffer, or for K = 5 the block's output
+// tile 0.2 * o5 + x into device memory.  Warpgroup g takes units g, g + 2,
+// ...; a unit past the stage's count (stages 1 and 3, warpgroup 1) reads
+// the region's last pixel and stores nothing, so that both warpgroups issue
+// the same wgmma.  Each unit's last rows past the region are clamped so too.
+template <int K>
+__device__ __forceinline__ void stage(const Params& p, uint32_t base, int g, int w, int lane,
+                                      int ty0, int tx0) {
+  using St = Stage<K>;
+  constexpr int kU = St::kU, kSide = St::kSide, kPixels = St::kPixels;
+  St st;
+#pragma unroll
+  for (int u = 0; u < kU; ++u)
+#pragma unroll
+    for (int e = 0; e < St::kN / 2; ++e) st.acc[u][e] = 0.f;
+  add_source<K, 0>(st, base, g, w, lane);
+  if constexpr (K > 1) add_source<K, 1>(st, base, g, w, lane);
+  if constexpr (K > 2) add_source<K, 2>(st, base, g, w, lane);
+  if constexpr (K > 3) add_source<K, 3>(st, base, g, w, lane);
+  if constexpr (K > 4) add_source<K, 4>(st, base, g, w, lane);
+
+  // epilogue: thread (w, lane) holds rows 16 w + lane / 4 (+ 8) of each unit,
+  // columns 8 j + 2 (lane % 4) + {0, 1}: sum pair 2 j (+ 1 for the row + 8)
+  const int c2 = (lane & 3) * 2;
+  const int org_y = ty0 - (kHalo - K), org_x = tx0 - (kHalo - K);  // image coordinates of region (0, 0)
+#pragma unroll
+  for (int u = 0; u < kU; ++u) {
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int unit = g + kGroups * u;
+      const int m = unit * kUnitPixels + 16 * w + (lane >> 2) + 8 * half;
+      if (unit >= St::kUnits || m >= kPixels) continue;
+      const int row = m / kSide, col = m % kSide;
+      const int gy = org_y + row, gx = org_x + col;
+#pragma unroll
+      for (int j = 0; j < St::kN / 8; ++j) {
+        const int n = 8 * j + c2;
+        const float2 s = __bfloat1622float2(st.sum[u][2 * j + half]);
+        const float v0 = round_bf16(s.x + round_bf16(__ldg(p.bias + (K - 1) * kC + n)));
+        const float v1 = round_bf16(s.y + round_bf16(__ldg(p.bias + (K - 1) * kC + n + 1)));
+        if constexpr (K < 5) {
+          const bool inside = gy >= 0 && gy < p.H && gx >= 0 && gx < p.W;
+          const __nv_bfloat162 o = inside ? __floats2bfloat162_rn(lrelu(v0), lrelu(v1))
+                                          : __floats2bfloat162_rn(0.f, 0.f);
+          hopper::st_shared_u32(base + buf_offset(K) + m * row_bytes(K) +
+                                    (((n >> 3) ^ ((m >> 1) & 3)) << 4) + (n & 7) * 2,
+                                reinterpret_cast<const uint32_t&>(o));
+        } else if (gy < p.H && gx < p.W) {
+          const int px = (row + kHalo) * side(0) + col + kHalo;
+          const uint32_t xw = hopper::ld_shared_u32(base + kXOffset + px * row_bytes(0) +
+                                                    (((n >> 3) ^ (px & 7)) << 4) + (n & 7) * 2);
+          const float2 xv = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162&>(xw));
+          const float res = round_bf16(0.2f);
+          bf16* out = static_cast<bf16*>(p.out) + (((size_t)blockIdx.z * p.H + gy) * p.W + gx) * kC + n;
+          *reinterpret_cast<__nv_bfloat162*>(out) =
+              __floats2bfloat162_rn(round_bf16(v0 * res) + xv.x, round_bf16(v1 * res) + xv.y);
+        }
+      }
+    }
+  }
+}
+
+// One RDB on an output tile of 16 x 16 pixels a block: warps 0-7 are two
+// consumer warpgroups, warps 8-11 the producer, of which one thread loads
+// x's haloed tile by TMA and streams the 124 weight boxes through the ring.
+__global__ void __launch_bounds__(kThreads, 1)
+    rdb_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map_x, Params p) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarrierOffset);
+  uint64_t* empty = full + kRingSlots;
+  uint64_t* x_full = empty + kRingSlots;
+  const uint32_t base = hopper::smem_u32(smem);
+  // warp-uniform as far as the compiler can see (a broadcast lane), so the
+  // consumers' wgmma sit on no divergent path
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingSlots; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], kConsumers);
+    }
+    hopper::mbar_init(x_full, 1);
+    hopper::fence_mbarrier_init();
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers / 32) {
+    hopper::setmaxnreg_dec<kProducerRegisters>();
+    if (warp == kConsumers / 32 && lane == 0) {
+      // x with its 5-pixel halo: one 4-D box, zeros outside the image
+      hopper::mbar_arrive_expect_tx(x_full, buffer_bytes(0));
+      hopper::tma_load_4d(smem + kXOffset, &map_x, x_full, 0, tx0 - kHalo, ty0 - kHalo, blockIdx.z);
+      const unsigned char* w = static_cast<const unsigned char*>(p.w[0]);
+      for (int i = 0; i < kStreamBoxes; ++i) {
+        const int s = i % kRingSlots;
+        hopper::mbar_wait(&empty[s], ((i / kRingSlots) & 1) ^ 1);  // round 0 passes at once
+        hopper::mbar_arrive_expect_tx(&full[s], kBoxBytes);
+        hopper::bulk_load(smem + s * kBoxBytes, w + (size_t)i * kBoxBytes, kBoxBytes, &full[s]);
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegisters>();
+  const int g = warp / 4, w = warp % 4;
+  hopper::mbar_wait(x_full, 0);
+  stage<1>(p, base, g, w, lane, ty0, tx0);
+  hopper::named_barrier(1, kConsumers);  // o1 is whole before stage 2 reads it
+  stage<2>(p, base, g, w, lane, ty0, tx0);
+  hopper::named_barrier(1, kConsumers);
+  stage<3>(p, base, g, w, lane, ty0, tx0);
+  hopper::named_barrier(1, kConsumers);
+  stage<4>(p, base, g, w, lane, ty0, tx0);
+  hopper::named_barrier(1, kConsumers);
+  stage<5>(p, base, g, w, lane, ty0, tx0);
+}
+
+int launch_bf16(const Params& p, int B, cudaStream_t stream) {
+  CUtensorMap map_x;
+  const int err = hopper::encode_bf16_4d(
+      &map_x, p.x, {(uint64_t)kC, (uint64_t)p.W, (uint64_t)p.H, (uint64_t)B},
+      {kC, (uint32_t)side(0), (uint32_t)side(0), 1}, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      rdb_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const dim3 grid((p.W + kTile - 1) / kTile, (p.H + kTile - 1) / kTile, B);
+  rdb_bf16_wgmma_kernel<<<grid, kThreads, kSmemBytes, stream>>>(map_x, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wg
 
 __global__ void __launch_bounds__(kThreads, 1) rdb_f32_split_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -538,8 +885,10 @@ int launch(void (*kernel)(Params), const Params& p, int B, cudaStream_t stream) 
 }  // namespace
 
 // dtype: 0 = float32 (w0..w4 the bf16 hi parts of the packed weights, l0..l4
-// their lo parts), 1 = bfloat16 (l0..l4 unused).  Returns the cudaError_t of
-// the launch.
+// their lo parts), 1 = bfloat16 (w0 the weight boxes of
+// ops/fused_rdb.py::box_rdb_weights, the others unused).  Returns 0, the
+// cudaError_t of the launch, or hopper::kEncodeErrorBase + the CUresult of
+// a failed tensor-map encode.
 extern "C" int fused_rdb_forward(int dtype, const void* x, const void* w0, const void* w1,
                                  const void* w2, const void* w3, const void* w4, const void* l0,
                                  const void* l1, const void* l2, const void* l3, const void* l4,
@@ -547,18 +896,28 @@ extern "C" int fused_rdb_forward(int dtype, const void* x, const void* w0, const
   const Params p{x, {w0, w1, w2, w3, w4}, {l0, l1, l2, l3, l4}, static_cast<const float*>(bias), out, H, W};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<3>(rdb_f32_split_kernel, p, B, s);
-  if (dtype == 1) return launch<1>(rdb_bf16_kernel, p, B, s);
+  if (dtype == 1) return wg::launch_bf16(p, B, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The output tile side and the dynamic shared memory of one block of the
-// dtype's kernel (0 = float32, 1 = bfloat16), or -1 for another dtype.  The
-// wrapper holds them against ops/fused_rdb.py::rdb_plan.
-extern "C" int fused_rdb_tile(int dtype) {
-  return dtype == 0 ? tile_side<3>() : dtype == 1 ? tile_side<1>() : -1;
-}
-
-extern "C" int fused_rdb_smem_bytes(int dtype) {
-  return dtype == 0 ? static_cast<int>(Layout<3>::kSmemBytes)
-                    : dtype == 1 ? static_cast<int>(Layout<1>::kSmemBytes) : -1;
+// The geometry of the dtype's kernel (0 = float32, 1 = bfloat16) into
+// out[6]: output tile side, threads, dynamic shared-memory bytes, weight
+// ring slots, bytes a slot, slots a tile streams.  Returns 0, or
+// cudaErrorInvalidValue for another dtype.  The wrapper holds it against
+// ops/fused_rdb.py::rdb_plan.
+extern "C" int fused_rdb_built_plan(int dtype, int* out) {
+  if (dtype == 0) {
+    const int values[6] = {tile_side<3>(), kThreads, static_cast<int>(Layout<3>::kSmemBytes),
+                           kRingSlots, static_cast<int>(Layout<3>::kSlotElems * sizeof(bf16)),
+                           kSlices};
+    for (int i = 0; i < 6; ++i) out[i] = values[i];
+    return 0;
+  }
+  if (dtype == 1) {
+    const int values[6] = {wg::kTile, wg::kThreads, wg::kSmemBytes, wg::kRingSlots, wg::kBoxBytes,
+                           wg::kStreamBoxes};
+    for (int i = 0; i < 6; ++i) out[i] = values[i];
+    return 0;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }

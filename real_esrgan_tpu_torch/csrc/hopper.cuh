@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks in inline PTX, in the style of
-// mma_tile.cuh: mbarriers, 2-D and 4-D TMA tensor loads and stores, wgmma
-// with its shared-memory matrix descriptors (A from shared memory or from
-// registers), ldmatrix, and the host-side encoding of TMA tensor maps.
-// mm_probe.cu's mm_grid kernel and conv3x3.cu are built on them.
+// mma_tile.cuh: mbarriers, 2-D and 4-D TMA tensor loads and stores, 1-D
+// bulk copies, register reallocation, wgmma with its shared-memory matrix
+// descriptors (A from shared memory or from registers), ldmatrix, and the
+// host-side encoding of TMA tensor maps.  mm_probe.cu's mm_grid kernel,
+// conv3x3.cu and fused_rdb.cu's bf16 kernel (rdb_bf16_wgmma_kernel) are
+// built on them.
 //
 // Layout contract (what the descriptors below assume): every operand tile in
 // shared memory is written by TMA with CU_TENSOR_MAP_SWIZZLE_128B, as boxes of
@@ -66,12 +68,16 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
                : "memory");
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+// the mbarrier at shared-memory address `bar`; a kernel short of registers
+// keeps one 32-bit base and offsets, not 64-bit pointers
+__device__ __forceinline__ void mbar_arrive_at(uint32_t bar) {
   asm volatile(
       "{\n.reg .b64 state;\n"
-      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(smem_u32(bar))
+      "mbarrier.arrive.shared::cta.b64 state, [%0];\n}" ::"r"(bar)
       : "memory");
 }
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) { mbar_arrive_at(smem_u32(bar)); }
 
 // A wait this long is a fault of the pipeline: trap, so that the launch
 // reports an error instead of hanging the card.
@@ -80,7 +86,7 @@ constexpr uint64_t kWaitLimitNs = 2000000000ull;
 // Waits until the phase of parity `parity` has completed.  The spin is one
 // asm block, so the compiler sees no divergent branch around the wgmma that
 // follows (a branch there makes ptxas serialise them, warning C7520).
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+__device__ __forceinline__ void mbar_wait_at(uint32_t bar, uint32_t parity) {
   asm volatile(
       "{\n.reg .pred done, late;\n.reg .u64 t0, t1;\n"
       "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
@@ -94,9 +100,25 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "setp.gt.u64 late, t1, %2;\n"
       "@late trap;\n"
       "bra WAIT;\n"
-      "DONE:\n}" ::"r"(smem_u32(bar)),
+      "DONE:\n}" ::"r"(bar),
       "r"(parity), "l"(kWaitLimitNs)
       : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  mbar_wait_at(smem_u32(bar), parity);
+}
+
+// ---- shared memory by 32-bit address ---------------------------------------
+
+__device__ __forceinline__ void st_shared_u32(uint32_t address, uint32_t value) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(address), "r"(value) : "memory");
+}
+
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t address) {
+  uint32_t value;
+  asm volatile("ld.shared.b32 %0, [%1];" : "=r"(value) : "r"(address) : "memory");
+  return value;
 }
 
 // ---- TMA -----------------------------------------------------------------
@@ -111,6 +133,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// copies `bytes` (a multiple of 16) from device memory at `src` to shared
+// memory at `dst`, both 16-byte aligned, as they lie, and completes them on
+// `bar`'s transaction count: a bulk copy without a tensor map, for data the
+// host has already laid out as shared memory wants it
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -159,6 +194,22 @@ __device__ __forceinline__ void bulk_wait_read() {
 // a barrier among `count` threads (whole warps) of the block
 __device__ __forceinline__ void named_barrier(int id, int count) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- register reallocation -------------------------------------------------
+
+// Gives up (dec) or takes (inc) registers for every warp of this warpgroup,
+// down or up to R a thread: a producer warpgroup that only issues copies
+// hands its registers to the consumer warpgroups.  All warps of a warpgroup
+// must run the same one.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(R));
 }
 
 // ---- wgmma ---------------------------------------------------------------

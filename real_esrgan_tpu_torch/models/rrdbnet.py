@@ -24,7 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from real_esrgan_tpu_torch.ops.fused_rdb import (
-    fused_rdb, lrelu, pack_rdb_weights, scalar_like, split_rdb_weights,
+    box_rdb_weights, fused_rdb, lrelu, pack_rdb_weights, scalar_like, split_rdb_weights,
 )
 
 
@@ -101,8 +101,9 @@ class ResidualDenseBlock(nn.Module):
     """5-conv dense block with a 0.2-scaled residual, on NCHW channels_last.
 
     ``packed=True`` runs the fused kernel (``ops.fused_rdb``: on a GPU the
-    CUDA kernel on the tensor cores, float32 as three bfloat16 products of
-    weights split once a pack; on the CPU its plain version);
+    CUDA kernel on the tensor cores, bfloat16 by TMA and wgmma from weight
+    boxes laid out once a pack, float32 by mma.sync as three bfloat16
+    products of weights split once a pack; on the CPU its plain version);
     ``packed=False`` runs the five concat convs as written in the
     reference."""
 
@@ -113,7 +114,7 @@ class ResidualDenseBlock(nn.Module):
         for k in range(5):
             out = growth if k < 4 else channels
             setattr(self, f"conv{k + 1}", Conv3x3(channels + k * growth, out, device))
-        self._packed_key, self._packed, self._split = None, None, None
+        self._packed_key, self._packed, self._split, self._boxes = None, None, None, None
 
     def convs(self):
         return [getattr(self, f"conv{k}") for k in range(1, 6)]
@@ -133,7 +134,7 @@ class ResidualDenseBlock(nn.Module):
             return pack()
         key = (dtype,) + tuple((p.device, p.data_ptr(), p._version) for p in params)
         if key != self._packed_key:
-            self._packed_key, self._packed, self._split = key, pack(), None
+            self._packed_key, self._packed, self._split, self._boxes = key, pack(), None, None
         return self._packed
 
     def split_weights(self, packed):
@@ -149,11 +150,23 @@ class ResidualDenseBlock(nn.Module):
             self._split = split_rdb_weights(packed)
         return self._split
 
+    def box_weights(self, packed):
+        """``box_rdb_weights`` of ``packed``, a bfloat16 pack from
+        ``packed_weights``, which the bfloat16 kernel reads: kept beside the
+        block's cached pack and dropped with it, as ``split_weights``.  Any
+        other pack is laid out anew."""
+        if packed is not self._packed:
+            return box_rdb_weights(packed)
+        if self._boxes is None:
+            self._boxes = box_rdb_weights(packed)
+        return self._boxes
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.packed:
             packed = self.packed_weights(x.dtype)
             split = self.split_weights(packed) if x.is_cuda and x.dtype == torch.float32 else None
-            y = fused_rdb(x.permute(0, 2, 3, 1).contiguous(), packed, split)
+            boxes = self.box_weights(packed) if x.is_cuda and x.dtype == torch.bfloat16 else None
+            y = fused_rdb(x.permute(0, 2, 3, 1).contiguous(), packed, split, boxes)
             return y.permute(0, 3, 1, 2)
         o1 = lrelu(self.conv1(x))
         o2 = lrelu(self.conv2(torch.cat([x, o1], 1)))

@@ -2,15 +2,21 @@
 
 ``fused_rdb`` computes one whole RDB forward (five dense 3x3 convs, LeakyReLU
 on the first four, 0.2-scaled residual) in one launch of a hand-written CUDA
-kernel of ``csrc/fused_rdb.cu``, on the tensor cores in both dtypes:
-bfloat16 as it is, float32 as three bfloat16 products.  The tensor cores
-take float32 only as TF32, which breaks the f32 bound of 1e-4, so each f32
-operand ``a`` is split into ``hi = bf16(a)`` and ``lo = bf16(a - hi)``
-(``split_bf16``) and each product is ``hi*hi + hi*lo + lo*hi`` summed in
-f32.  The weights are split once a pack (``split_rdb_weights``), the
-activations inside the kernel.  It is the hot loop of the generator: 69
-launches per forward, about 93% of its FLOPs.  ``rdb_plan`` states each
-kernel's tile and shared memory; the wrapper holds the built kernel to it.
+kernel of ``csrc/fused_rdb.cu``, on the tensor cores in both dtypes, by two
+schedules.  bfloat16 runs on Hopper's own path: the x tile arrives by TMA,
+a producer warpgroup streams the weights by bulk copies through a ring of
+mbarrier-guarded slots, and two consumer warpgroups issue ``wgmma`` with A
+from registers.  It reads the weights as 124 boxes of 32 columns x 64 k,
+laid out and swizzled as shared memory wants them (``box_rdb_weights``).
+float32 runs the earlier ``ldmatrix`` + ``mma.sync`` schedule as three
+bfloat16 products: the tensor cores take float32 only as TF32, which breaks
+the f32 bound of 1e-4, so each f32 operand ``a`` is split into ``hi =
+bf16(a)`` and ``lo = bf16(a - hi)`` (``split_bf16``) and each product is
+``hi*hi + hi*lo + lo*hi`` summed in f32 (``split_rdb_weights``).  Both forms of the weights
+are made once a pack: ``ResidualDenseBlock`` keeps them beside its pack.
+The kernel is the hot loop of the generator: 69 launches per forward, about
+93% of its FLOPs.  ``rdb_plan`` states each kernel's geometry; the wrapper
+holds the built kernel to it.
 
 Arithmetic is the packed formulation of the flax block
 (real_esrgan_tpu/models/rrdbnet.py, ResidualDenseBlock): a concat conv
@@ -41,33 +47,89 @@ KERNEL_GROWTH = 32
 HALO = 5  # five chained 3x3 convs
 
 
+# the bfloat16 kernel's weight stream and shared memory (csrc/fused_rdb.cu, namespace wg)
+BOX_ROWS = 32         # output columns of a weight box
+BOX_K = 64            # k of a weight box: one 128-byte row a column
+BOX_BYTES = BOX_ROWS * BOX_K * 2
+RING_SLOTS = 7
+SMEM_ALIGN = 1024     # the 128-byte swizzle repeats every 1024 bytes
+MBARRIER_BYTES = 8
+UNIT_PIXELS = 64      # one wgmma m64 tile of region pixels
+CONSUMER_WARPGROUPS = 2
+
+
+def _source_boxes(s: int) -> int:
+    """Boxes of one (consumer, source) pair and one 32-column half: 9 Cin k
+    in whole boxes of 64 (x: 9; o1..o4: 5, the last half zeros)."""
+    cin = KERNEL_CHANNELS if s == 0 else KERNEL_GROWTH
+    return -(-9 * cin // BOX_K)
+
+
 def rdb_plan(dtype: torch.dtype) -> dict:
     """The block plan of ``csrc/fused_rdb.cu``'s kernel for ``dtype``.
 
-    Both dtypes run one schedule on the tensor cores, with ``products`` bf16
-    products a fragment pair: 1 for bfloat16, 3 for float32 (hi*hi, hi*lo,
-    lo*hi).  ``tile`` is the output tile side T of one block; ``planes`` the
-    bf16 planes of each shared-memory buffer (float32: a hi and a lo plane in
-    the same layout); ``buffers`` the bytes of each buffer: the x tile with
-    its halo (side T + 10, 64 channels), o1..o4 (sides T + 8 .. T + 2, 32
-    channels) and the ring of two weight slots of 3 taps x 32 input channels x
-    64 columns, in as many planes; ``smem_bytes`` their sum.  ``stages`` gives
-    each stage's implicit GEMM: region side and pixels, fragments of 16
-    pixels, output columns, and how the warps share it: a warp computes 32
-    columns, so the warps form ``warp_groups`` groups (one a 32-column
-    slice), and warp w of a group of g takes fragments w, w + g, ..., at most
-    ``units_per_warp``.
+    ``tile`` is the output tile side T of one block.  Every block keeps the
+    x tile with its halo (side T + 10, 64 channels) and o1..o4 (sides T + 8
+    .. T + 2, 32 channels) in shared memory, and ``stages`` gives each
+    stage's implicit GEMM over its region (side T + 8 .. T): pixels, output
+    columns and how the block shares them.  ``ring_slots`` of ``slot_bytes``
+    stream ``slots_per_tile`` weight slices or boxes a tile; ``buffers``
+    sums to ``smem_bytes``.
+
+    bfloat16 (``rdb_bf16_wgmma_kernel``): T = 16, two consumer warpgroups
+    and a producer warpgroup, which gives its ``registers`` up to them.  A
+    stage's region is cut into units of 64 pixels (one wgmma m64 tile);
+    warpgroup g takes units g, g + 2, ...; where the count is odd,
+    warpgroup 1's last unit is a dummy that stores nothing.  The weights
+    arrive as boxes of 32 columns x 64 k (4096 bytes, ``box_rdb_weights``),
+    source-major: ``boxes`` of each source, an o's last box half zeros, of
+    which only ``k_steps`` steps of 16 are issued; stage 5's 64 columns are
+    two ``halves``, a box and a wgmma each.  The ring's slots and x sit on
+    1024-byte boundaries (``align``: the room to find one); each slot has a
+    full and an empty mbarrier, x one.
+
+    float32 (``rdb_f32_split_kernel``): T = 8 and ``products`` 3 (hi*hi,
+    hi*lo, lo*hi).  Each buffer holds a hi and a lo bf16 ``planes`` in the
+    same layout; the ring is two slots of a slice of 3 taps x 32 input
+    channels x 64 columns, in both planes, 60 a tile.  Eight warps of 32
+    columns each form ``warp_groups`` groups (one a 32-column slice), and
+    warp w of a group of g takes fragments of 16 pixels w, w + g, ..., at
+    most ``units_per_warp``.
     """
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_rdb takes float32 or bfloat16, not {dtype}")
-    c, g, warps = KERNEL_CHANNELS, KERNEL_GROWTH, 8
-    split = dtype == torch.float32
-    planes, tile = (2, 8) if split else (1, 16)
-    plane_bytes = 2  # every plane holds bf16
+    c, g = KERNEL_CHANNELS, KERNEL_GROWTH
+    if dtype == torch.bfloat16:
+        tile = 16
+        sides = [tile + 2 * (HALO - k) for k in range(6)]
+        buffers = {"align": SMEM_ALIGN, "weight_ring": RING_SLOTS * BOX_BYTES}
+        for k in range(5):
+            buffers["x" if k == 0 else f"o{k}"] = sides[k] ** 2 * (c if k == 0 else g) * 2
+        buffers["mbarriers"] = (2 * RING_SLOTS + 1) * MBARRIER_BYTES
+        stages = []
+        for k in range(1, 6):
+            units = -(-sides[k] ** 2 // UNIT_PIXELS)
+            per_group = -(-units // CONSUMER_WARPGROUPS)
+            stages.append({
+                "side": sides[k], "pixels": sides[k] ** 2, "units": units,
+                "columns": g if k < 5 else c, "halves": 1 if k < 5 else 2,
+                "units_per_warpgroup": per_group,
+                "dummy_units": CONSUMER_WARPGROUPS * per_group - units,
+                "boxes": [_source_boxes(s) for s in range(k)],
+                "k_steps": [9 * (c if s == 0 else g) // 16 for s in range(k)]})
+        return {"tile": tile, "products": 1, "planes": 1,
+                "threads": 128 * (CONSUMER_WARPGROUPS + 1),
+                "consumer_warpgroups": CONSUMER_WARPGROUPS, "producer_warpgroups": 1,
+                "registers": {"consumer": 240, "producer": 24},
+                "ring_slots": RING_SLOTS, "slot_bytes": BOX_BYTES,
+                "slots_per_tile": sum(st["halves"] * sum(st["boxes"]) for st in stages),
+                "buffers": buffers, "stages": stages, "smem_bytes": sum(buffers.values())}
+    warps, planes, tile, ring_slots = 8, 2, 8, 2
     sides = [tile + 2 * (HALO - k) for k in range(6)]  # x, o1..o4, the output tile
-    buffers = {("x" if k == 0 else f"o{k}"): sides[k] ** 2 * (c if k == 0 else g) * planes * plane_bytes
+    buffers = {("x" if k == 0 else f"o{k}"): sides[k] ** 2 * (c if k == 0 else g) * planes * 2
                for k in range(5)}
-    buffers["weight_ring"] = 2 * 3 * g * c * planes * plane_bytes
+    slot_bytes = 3 * g * c * planes * 2
+    buffers["weight_ring"] = ring_slots * slot_bytes
     stages = []
     for k in range(1, 6):
         frags, columns = -(-sides[k] ** 2 // 16), g if k < 5 else c
@@ -75,9 +137,14 @@ def rdb_plan(dtype: torch.dtype) -> dict:
         stages.append({"side": sides[k], "pixels": sides[k] ** 2, "fragments": frags,
                        "columns": columns, "warp_groups": groups,
                        "units_per_warp": -(-frags // (warps // groups))})
-    return {"tile": tile, "products": 3 if split else 1, "planes": planes,
-            "threads": 32 * warps, "warps": warps, "buffers": buffers, "stages": stages,
+    return {"tile": tile, "products": 3, "planes": planes, "threads": 32 * warps,
+            "warps": warps, "ring_slots": ring_slots, "slot_bytes": slot_bytes,
+            "slots_per_tile": 3 * (2 + 3 + 4 + 5 + 6), "buffers": buffers, "stages": stages,
             "smem_bytes": sum(buffers.values())}
+
+
+# the keys of rdb_plan that the built library reports, in fused_rdb_built_plan's order
+BUILT_PLAN_KEYS = ("tile", "threads", "smem_bytes", "ring_slots", "slot_bytes", "slots_per_tile")
 
 
 def pack_rdb_weights(kernels: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
@@ -126,6 +193,45 @@ def split_rdb_weights(packed: Sequence[torch.Tensor]
     return tuple(hi for hi, _ in parts), tuple(lo for _, lo in parts)
 
 
+def box_rdb_weights(packed: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The five bfloat16 weights of ``pack_rdb_weights`` as the bfloat16
+    kernel streams them: 124 boxes of 32 columns x 64 k, one flat bfloat16
+    tensor on the pack's device.
+
+    Consumer k (o1..o5) takes from source s (x, o1..o4) the K-major matrix
+    (N, 9 Cin_s), N its 32 or 64 columns, k = (g, tap, c) for input channel
+    32 g + c: the order in which the earlier mma.sync schedule and the
+    card's library convolution sum, so that the f32 sums round to bf16 as
+    theirs do.  It is cut into
+    whole boxes of 64 k (an o's 288 k padded with zeros to 320) and into
+    halves of 32 columns.  The stream is consumer-major, then source, box
+    and half.  A box is 32 rows of 128 bytes, each row's 16-byte chunk c at
+    chunk c ^ (row % 8): the 128-byte swizzle, as a wgmma descriptor reads
+    it from a 1024-aligned slot.  Made once a pack: ``ResidualDenseBlock``
+    keeps it beside its pack and drops both together."""
+    weights = packed[:5]
+    boxes = []
+    for k in range(1, 6):
+        n = KERNEL_GROWTH if k < 5 else KERNEL_CHANNELS
+        for s in range(k):
+            w = weights[s]
+            cin = w.shape[1]
+            cols = (k - 1 - s) * KERNEL_GROWTH
+            # k = (group of 32 input channels, tap, channel of the group)
+            b = w[:, :, cols:cols + n].reshape(9, cin // BOX_ROWS, BOX_ROWS, n)
+            b = b.permute(1, 0, 2, 3).reshape(9 * cin, n).t()
+            nb = _source_boxes(s)
+            b = F.pad(b, (0, nb * BOX_K - 9 * cin))
+            b = b.reshape(n // BOX_ROWS, BOX_ROWS, nb, BOX_K).permute(2, 0, 1, 3)
+            boxes.append(b.reshape(-1, BOX_ROWS * BOX_K))
+    boxes = torch.cat(boxes)
+    row = torch.arange(BOX_ROWS, device=boxes.device)[:, None, None]
+    chunk = torch.arange(BOX_K // 8, device=boxes.device)[None, :, None]
+    within = torch.arange(8, device=boxes.device)[None, None, :]
+    source = (row * BOX_K + (chunk ^ (row % 8)) * 8 + within).reshape(-1)
+    return boxes[:, source].reshape(-1).contiguous()
+
+
 def scalar_like(value: float, like: torch.Tensor) -> torch.Tensor:
     """``value`` rounded to ``like``'s dtype, as JAX rounds a weak-typed constant.
     Filled on ``like``'s device, so a CUDA graph can capture it."""
@@ -167,7 +273,7 @@ def rdb_plain(x: torch.Tensor, packed: Sequence[torch.Tensor]) -> torch.Tensor:
     return out.permute(0, 2, 3, 1)
 
 
-def _check(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None) -> None:
+def _check(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None, boxes=None) -> None:
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_rdb takes float32 or bfloat16, not {x.dtype}")
     if x.dim() != 4 or x.shape[-1] != KERNEL_CHANNELS:
@@ -202,10 +308,28 @@ def _check(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None) -> None:
                                      f"{tuple(w.shape)} bfloat16 on {x.device}, got "
                                      f"{tuple(t.shape)} {t.dtype} on {t.device}")
                 parts.append((f"split {name}", t))
-    # the kernel reads x and the weights in 16-byte chunks
+    if boxes is not None:
+        if x.dtype != torch.bfloat16:
+            raise ValueError("only the bfloat16 kernel takes weight boxes")
+        size = rdb_plan(torch.bfloat16)["slots_per_tile"] * BOX_BYTES // 2
+        if tuple(boxes.shape) != (size,) or boxes.dtype != torch.bfloat16 or \
+                boxes.device != x.device or not boxes.is_contiguous():
+            raise ValueError(f"boxes must be box_rdb_weights' contiguous ({size},) bfloat16 on "
+                             f"{x.device}, got {tuple(boxes.shape)} {boxes.dtype} on "
+                             f"{boxes.device}")
+        parts.append(("boxes", boxes))
+    # the kernels read x and the weights in 16-byte chunks
     for name, t in [("packed weight", w) for w in weights] + [("packed bias", bias)] + parts:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
+
+
+def _built_plan(lib: ctypes.CDLL, dtype: torch.dtype) -> dict:
+    values = (ctypes.c_int * len(BUILT_PLAN_KEYS))()
+    err = lib.fused_rdb_built_plan(_DTYPE_CODES[dtype], values)
+    if err != 0:
+        raise RuntimeError(f"fused_rdb_built_plan failed with CUDA error {err}")
+    return dict(zip(BUILT_PLAN_KEYS, values))
 
 
 def _library() -> ctypes.CDLL:
@@ -214,35 +338,34 @@ def _library() -> ctypes.CDLL:
         vp, i = ctypes.c_void_p, ctypes.c_int
         lib.fused_rdb_forward.argtypes = [i] + [vp] * 13 + [i, i, i, vp]
         lib.fused_rdb_forward.restype = i
-        for fn in (lib.fused_rdb_tile, lib.fused_rdb_smem_bytes):
-            fn.argtypes, fn.restype = [i], i
-        for dtype, code in _DTYPE_CODES.items():
-            plan = rdb_plan(dtype)
-            built = {"tile": lib.fused_rdb_tile(code), "smem_bytes": lib.fused_rdb_smem_bytes(code)}
-            if built != {key: plan[key] for key in built}:
+        lib.fused_rdb_built_plan.argtypes = [i, ctypes.POINTER(i)]
+        lib.fused_rdb_built_plan.restype = i
+        for dtype in _DTYPE_CODES:
+            plan, built = rdb_plan(dtype), _built_plan(lib, dtype)
+            if built != {key: plan[key] for key in BUILT_PLAN_KEYS}:
                 raise RuntimeError(f"csrc/fused_rdb.cu's {dtype} kernel has {built}, rdb_plan "
-                                   f"says tile {plan['tile']}, smem_bytes {plan['smem_bytes']}")
+                                   f"says {({key: plan[key] for key in BUILT_PLAN_KEYS})}")
     return lib
 
 
 def built_rdb_plan(dtype: torch.dtype) -> dict:
-    """The tile and shared memory the built kernel for ``dtype`` reports
-    (building it first if needed); loading raises unless they are
-    ``rdb_plan``'s."""
-    lib, code = _library(), _DTYPE_CODES[dtype]
-    return {"tile": lib.fused_rdb_tile(code), "smem_bytes": lib.fused_rdb_smem_bytes(code)}
+    """The geometry the built kernel for ``dtype`` reports (``BUILT_PLAN_KEYS``:
+    tile, threads, shared memory, ring slots, slot bytes, slots a tile),
+    building it first if needed; loading raises unless it is ``rdb_plan``'s."""
+    return _built_plan(_library(), dtype)
 
 
-def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None) -> torch.Tensor:
+def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None,
+              boxes: torch.Tensor = None) -> torch.Tensor:
     """One RDB forward on NHWC ``x`` (B, H, W, 64), float32 or bfloat16.
 
     ``packed`` is ``pack_rdb_weights(..., dtype=x.dtype)``.  A CPU tensor
     goes through ``rdb_plain``; a CUDA tensor through its dtype's CUDA kernel
-    on the tensor cores (float32 as three bfloat16 products), which adds one
-    to ``fused_rdb.launches``, or raises: there is no fallback.  The float32
-    kernel reads the weights as ``split = split_rdb_weights(packed)``; pass
-    it to split them once, or the call splits them itself (some twenty
-    elementwise launches).  bfloat16 takes no split.
+    on the tensor cores, which adds one to ``fused_rdb.launches``, or raises:
+    there is no fallback.  The float32 kernel reads the weights as ``split =
+    split_rdb_weights(packed)``, the bfloat16 kernel as ``boxes =
+    box_rdb_weights(packed)``; pass them to make them once, or the call
+    makes them itself (some twenty, or some eighty, small launches).
 
     The kernel has no backward.  On a CUDA tensor with autograd on and
     ``x`` or a packed tensor requiring grad, it raises rather than return an
@@ -257,19 +380,22 @@ def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None) -> to
         raise RuntimeError("fused_rdb: the CUDA kernel has no backward, so its output would "
                            "carry no gradient; train with Generator(packed=False) or the "
                            "plain math (rdb_plain), or run the forward under torch.no_grad()")
-    if x.dtype == torch.float32 and split is None:
+    if x.dtype == torch.float32 and split is None and boxes is None:
         split = split_rdb_weights(packed)
-    _check(x, packed, split)
+    if x.dtype == torch.bfloat16 and boxes is None and split is None:
+        boxes = box_rdb_weights(packed)
+    _check(x, packed, split, boxes)
     lib = _library()
     b, h, w, _ = x.shape
     *weights, bias = packed
-    hi, lo = split if split is not None else (weights, [None] * 5)
+    if x.dtype == torch.float32:
+        hi, lo = [t.data_ptr() for t in split[0]], [t.data_ptr() for t in split[1]]
+    else:
+        hi, lo = [boxes.data_ptr()] + [None] * 4, [None] * 5
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fused_rdb_forward(_DTYPE_CODES[x.dtype], x.data_ptr(),
-                                    *[t.data_ptr() for t in hi],
-                                    *[None if t is None else t.data_ptr() for t in lo],
+        err = lib.fused_rdb_forward(_DTYPE_CODES[x.dtype], x.data_ptr(), *hi, *lo,
                                     bias.data_ptr(), out.data_ptr(), b, h, w, stream)
     if err != 0:
         raise RuntimeError(f"fused_rdb kernel launch failed with CUDA error {err}")

@@ -10,8 +10,9 @@ operands and the order of its sums); bf16 atol/rtol 2e-2 (one rounding to
 bf16 after an f32 sum taken in another order); the conv's copy modes are
 exact.  The RDB kernel's shapes (output tile T=16 in bf16, T=8 in f32) take
 ragged edges, images narrower or shorter than a tile, a block whose last
-fragment is clamped, and a batch of three; f32 also inputs at the trunk's
-magnitude (|x| up to 60), where the split has the least room.
+fragment or unit is clamped, and a batch of three; both dtypes also inputs
+at the trunk's magnitude (|x| up to 60), where f32's split has the least
+room and bf16's rounding the largest absolute steps.
 """
 
 import os
@@ -25,7 +26,8 @@ from real_esrgan_tpu_torch.ops.conv3x3 import (
     built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
 )
 from real_esrgan_tpu_torch.ops.fused_rdb import (
-    built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain, rdb_plan, split_bf16, split_rdb_weights,
+    BUILT_PLAN_KEYS, box_rdb_weights, built_rdb_plan, fused_rdb, pack_rdb_weights, rdb_plain,
+    rdb_plan, split_bf16, split_rdb_weights,
 )
 from real_esrgan_tpu_torch.ops.mm_probe import (
     built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
@@ -141,7 +143,77 @@ def test_fused_rdb_f32_ragged_against_its_tile(cuda, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_rdb_launches_at_its_plan(cuda, dtype):
     plan = rdb_plan(dtype)
-    assert built_rdb_plan(dtype) == {"tile": plan["tile"], "smem_bytes": plan["smem_bytes"]}
+    assert built_rdb_plan(dtype) == {key: plan[key] for key in BUILT_PLAN_KEYS}
+
+
+# against the bf16 kernel's tile of 16: smaller than a tile, three ragged
+# images, the golden crop's 67 x 93, widths that are not multiples of 16
+@pytest.mark.parametrize("shape", [(1, 5, 3, 64), (3, 17, 40, 64), (1, 67, 93, 64), (1, 16, 24, 64),
+                                   (2, 33, 50, 64), (1, 20, 7, 64), (1, 31, 130, 64)],
+                         ids=["smaller_than_a_tile", "three_ragged", "67x93", "16x24", "33x50",
+                              "20x7", "31x130"])
+def test_fused_rdb_bf16_ragged_against_its_tile(cuda, shape):
+    assert rdb_plan(torch.bfloat16)["tile"] == 16
+    packed = _trained_packed(torch.bfloat16, cuda)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    x = (torch.randn(shape, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
+    before = fused_rdb.launches
+    out = fused_rdb(x, packed, boxes=box_rdb_weights(packed))
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before + 1 and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), rdb_plain(x, packed).float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("name", ["trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3"])
+def test_fused_rdb_bf16_matches_plain_at_trunk_magnitude(cuda, name):
+    packed = _trained_packed(torch.bfloat16, cuda, name)
+    x = _trunk_input((2, 67, 93, 64), cuda, seed=11).to(torch.bfloat16)
+    out = fused_rdb(x, packed, boxes=box_rdb_weights(packed))
+    torch.testing.assert_close(out.float(), rdb_plain(x, packed).float(), atol=2e-2, rtol=2e-2)
+
+
+def test_fused_rdb_bf16_counts_each_launch_with_its_boxes(cuda):
+    packed = _trained_packed(torch.bfloat16, cuda)
+    boxes = box_rdb_weights(packed)
+    x = torch.zeros(1, 20, 24, 64, device=cuda, dtype=torch.bfloat16)
+    before = fused_rdb.launches
+    for _ in range(3):
+        fused_rdb(x, packed, boxes=boxes)
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before + 3
+    with pytest.raises(ValueError, match="only the bfloat16"):
+        fused_rdb(x.float(), _trained_packed(torch.float32, cuda), boxes=boxes)
+    with pytest.raises(ValueError, match="box_rdb_weights"):
+        fused_rdb(x, packed, boxes=boxes[:-8])
+    assert fused_rdb.launches == before + 3
+
+
+def test_box_rdb_weights_on_the_card_equals_the_cpu(cuda):
+    packed = _trained_packed(torch.bfloat16, "cpu")
+    assert torch.equal(box_rdb_weights([t.to(cuda) for t in packed]).cpu(), box_rdb_weights(packed))
+
+
+def test_fused_rdb_boxes_follow_load_state_dict(cuda):
+    """The block's weight boxes are laid out from its current weights: after
+    load_state_dict the bf16 kernel computes the new weights' RDB."""
+    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    block = ResidualDenseBlock(64, 32, device=cuda).eval()
+    x = _trunk_input((1, 30, 44, 64), cuda, seed=12).to(torch.bfloat16).permute(0, 3, 1, 2)
+    seen = []
+    for name in ("trunk.0.rdb1", "trunk.22.rdb3"):
+        block.load_state_dict({k[len(name) + 1:]: v for k, v in state.items()
+                               if k.startswith(name + ".")})
+        with torch.no_grad():
+            out = block(x)
+            out_again = block(x)
+            seen.append(block.box_weights(block.packed_weights(torch.bfloat16)))
+        packed = _trained_packed(torch.bfloat16, cuda, name)
+        assert torch.equal(seen[-1], box_rdb_weights(packed))
+        ref = rdb_plain(x.permute(0, 2, 3, 1).contiguous(), packed)
+        torch.testing.assert_close(out.permute(0, 2, 3, 1).float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+        assert torch.equal(out, out_again)
+    assert seen[0] is not seen[1]
 
 
 def test_split_bf16_on_the_card_equals_the_cpu(cuda):

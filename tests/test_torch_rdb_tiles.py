@@ -173,19 +173,37 @@ def test_plan_fits_shared_memory_and_sums_its_buffers(dtype):
     planes = {torch.float32: 2, torch.bfloat16: 1}[dtype]
     assert plan["planes"] == planes == size // 2
     assert plan["products"] == {torch.float32: 3, torch.bfloat16: 1}[dtype]
-    assert plan["buffers"]["weight_ring"] == 2 * 3 * GROUP * C * 2 * planes
-    assert plan["smem_bytes"] == {torch.float32: 221_184, torch.bfloat16: 225_280}[dtype]
+    assert plan["buffers"]["weight_ring"] == plan["ring_slots"] * plan["slot_bytes"]
+    if dtype == torch.float32:  # two slots of a slice: 3 taps x 32 channels x 64 columns
+        assert plan["buffers"]["weight_ring"] == 2 * 3 * GROUP * C * 2 * planes
+        assert plan["slots_per_tile"] == 60
+    else:  # seven slots of a box of 32 columns x 64 k, the mbarriers, room to align
+        assert plan["buffers"]["weight_ring"] == 7 * 32 * 64 * 2
+        assert plan["buffers"]["mbarriers"] == (2 * 7 + 1) * 8
+        assert plan["buffers"]["align"] == 1024 and plan["slots_per_tile"] == 124
+    assert plan["smem_bytes"] == {torch.float32: 221_184, torch.bfloat16: 230_520}[dtype]
     with pytest.raises(TypeError):
         rdb_plan(torch.float16)
 
 
 @pytest.mark.parametrize("stage", range(1, 6))
 def test_fragments_cover_each_stage_region_once(stage):
-    """A warp computes 32 columns; warp w of a group of g takes fragments
-    w, w + g, ... below the stage's count.  Every (fragment, 32 columns) is
-    taken by exactly one warp, every region pixel lies in exactly one
-    fragment, and the tail is clamped."""
-    check_stage_cover(rdb_plan(torch.bfloat16), stage)
+    """The bfloat16 kernel's fragments are units of 64 region pixels, one
+    wgmma m64 tile each, every unit all of the stage's columns: warpgroup g
+    of two takes units g, g + 2, ..., the same count each, so that a unit
+    past the stage's count is a dummy.  Every real unit is taken by exactly
+    one warpgroup, every region pixel lies in exactly one unit, and the
+    tail and the dummy are clamped."""
+    plan = rdb_plan(torch.bfloat16)
+    st, groups = plan["stages"][stage - 1], plan["consumer_warpgroups"]
+    assert st["side"] == plan["tile"] + 2 * (HALO - stage) and st["pixels"] == st["side"] ** 2
+    assert st["columns"] == (G if stage < 5 else C) == G * st["halves"]
+    taken = [g + groups * u for g in range(groups) for u in range(st["units_per_warpgroup"])]
+    real = sorted(t for t in taken if t < st["units"])
+    assert real == list(range(st["units"])) and len(taken) - len(real) == st["dummy_units"] <= 1
+    assert (st["units"] - 1) * 64 < st["pixels"] <= st["units"] * 64
+    rows = torch.arange(len(taken) * 64)
+    assert rows.clamp(max=st["pixels"] - 1).max() == st["pixels"] - 1
 
 
 @pytest.mark.parametrize("stage", range(1, 6))
@@ -262,7 +280,7 @@ def test_split_model_generator_matches_jax_golden(monkeypatch):
 
     calls = []
 
-    def emulated(x, packed, split=None):
+    def emulated(x, packed, split=None, boxes=None):
         calls.append(x.shape)
         return split_model(x, packed)
 
@@ -380,8 +398,25 @@ def test_swizzle_keeps_ldmatrix_phases_free_of_bank_conflicts(chunks):
 def test_swizzle_holds_in_every_plane_of_the_plan(dtype):
     """Every buffer and ring plane of the plan (float32: a hi and a lo plane
     each) starts on a 128-byte line, so the swizzle's eight bank groups hold
-    for ldmatrix in the lo planes as in the hi ones."""
+    for ldmatrix in the lo planes as in the hi ones.  bfloat16: the ring's
+    slots and x, which TMA and wgmma address with the 128-byte swizzle, start
+    on 1024-byte boundaries, o1..o4 on 128-byte lines."""
     plan = rdb_plan(dtype)
+    if dtype == torch.bfloat16:
+        offset = 0
+        for name, size in list(plan["buffers"].items())[1:-1]:  # past "align", before the mbarriers
+            assert offset % (1024 if name in ("weight_ring", "x") else 128) == 0, name
+            if name == "weight_ring":
+                assert all((offset + slot * plan["slot_bytes"]) % 1024 == 0
+                           for slot in range(plan["ring_slots"]))
+            chunks = 8 if name in ("x", "weight_ring") else 4
+            for first in range(0, 40):
+                groups = {((offset // 16 + row * chunks + swizzle(row, chunks)) % BANK_GROUPS)
+                          for row in range(first, first + 8)}
+                assert len(groups) == BANK_GROUPS
+            offset += size
+        assert offset % 8 == 0  # the mbarriers
+        return
     offset = 0
     for name, size in plan["buffers"].items():
         plane = size // plan["planes"]

@@ -8,14 +8,15 @@
    with nvcc (one process a source, all at once), printing each source's
    build seconds, registers, spills and shared memory, the tensor-core, TMA,
    mbarrier and shared-memory instructions of each kernel as ``cuobjdump
-   -sass`` shows them (the bf16 RDB kernel, every ``mm_grid`` and every
-   ``conv3x3`` kernel must have ``HGMMA`` and ``UTMALDG`` and no ``HMMA``,
-   the f32 RDB kernel ``HMMA``; neither RDB kernel nor ``conv3x3`` may have
-   ``LDL``/``STL``; no build may warn C7520, serialised ``wgmma``), the RDB
-   kernels' block plan (``rdb_plan``: tile, threads, shared memory, ring),
-   ``mm_grid``'s at the gate's shapes (``mm_grid_plan``) and ``conv3x3``'s
-   at the tool's default shape (``conv3x3_plan``), each beside what the
-   built library reports;
+   -sass`` shows them (the bf16 RDB kernel, every ``mm_grid``, every
+   ``mm_resident`` and every ``conv3x3`` kernel must have ``HGMMA`` and
+   ``UTMALDG`` and no ``HMMA``, the f32 RDB kernel ``HMMA``; neither RDB
+   kernel, nor ``conv3x3``, nor ``mm_resident`` may have ``LDL``/``STL``; no
+   build may warn C7520, serialised ``wgmma``), the RDB kernels' block plan
+   (``rdb_plan``: tile, threads, shared memory, ring), ``mm_grid``'s and
+   ``mm_resident``'s at the gate's shapes (``mm_grid_plan``,
+   ``mm_resident_plan``) and ``conv3x3``'s at the tool's default shape
+   (``conv3x3_plan``), each beside what the built library reports;
 3. drives the x4 serving path: ``SRPipeline`` with
    ``assets/inenv10_esrnet_ema.npz`` answers requests in bfloat16 and in
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
@@ -32,8 +33,8 @@
    launch counts of ``conv3x3``, ``mm_grid`` and ``mm_resident`` set to 0
    just before and read just after, and holds those three kernels against
    their plain versions at every shape that run gave them, smaller and
-   ragged ones, and ``mm_grid`` and ``conv3x3`` to exact one-hot probes of
-   their operand layouts;
+   ragged ones, and ``mm_grid``, ``mm_resident`` and ``conv3x3`` to exact
+   one-hot probes of their operand layouts (and ``mm_resident``'s k split);
 6. drives the evaluation path: ``real_esrgan_tpu_torch.test`` (float32 and
    ``--bfloat16``) and ``scripts.eval_pair`` on three crops of the test
    image, recording the RDB kernel's input shapes here too, and NIQE of
@@ -85,8 +86,8 @@ from real_esrgan_tpu_torch.ops.fused_rdb import (
     rdb_plan, split_rdb_weights,
 )
 from real_esrgan_tpu_torch.ops.mm_probe import (
-    built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
-    mm_resident_smem_bytes,
+    RESIDENT_MAX_K_BOXES, RESIDENT_WIDTHS, built_mm_grid_plan, built_mm_resident_plan, mm_grid,
+    mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain, mm_resident_plan,
 )
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
 from real_esrgan_tpu_torch.scripts import eval_pair
@@ -146,6 +147,10 @@ CONV_EXTRA_SHAPES = (((2, 64, 48, 32), 96, 16), ((1, 64, 48, 64), 64, 16))
 CONV_PROBE_SHAPES = (((1, 64, 48, 64), 64, 16), ((2, 16, 32, 32), 96, 8),
                      ((1, 16, 32, 64), 192, 8))
 MM_REPS = 32
+# K4's one-hot probes: the k of each (64 a box, split between the two
+# warpgroups in the middle of one at 192 and 576) and the reps
+RESIDENT_PROBE_K = (192, 576)
+RESIDENT_PROBE_REPS = (1, MM_REPS)
 BF16_TOLERANCE = TOLERANCE[torch.bfloat16]
 # crops of the test image the evaluation path scores: (top, left, height, width)
 EVAL_CROPS = {"a_64x64.png": (0, 0, 64, 64), "b_96x128.png": (100, 200, 96, 128),
@@ -225,14 +230,17 @@ def build_kernels() -> None:
     f32_rdb = sass["fused_rdb"].get("rdb_f32_split_kernel", {"HMMA": 1})
     check(f32_rdb["HMMA"] > 0, f"rdb_f32_split_kernel is not an mma.sync kernel: {f32_rdb}")
     hopper = {k: v for name in ("mm_probe", "conv3x3", "fused_rdb") for k, v in sass[name].items()
-              if k.startswith(("mm_grid_kernel", "conv3x3_kernel", "rdb_bf16_wgmma_kernel"))}
+              if k.startswith(("mm_grid_kernel", "mm_resident_kernel", "conv3x3_kernel",
+                               "rdb_bf16_wgmma_kernel"))}
     built = sorted(k.split("<")[0] for k in hopper)
+    resident_instances = len(RESIDENT_WIDTHS) * RESIDENT_MAX_K_BOXES  # (BN, k boxes)
     check(not sass["mm_probe"] or built == ["conv3x3_kernel"] * 5 + ["mm_grid_kernel"] * 4
-          + ["rdb_bf16_wgmma_kernel"], f"TMA + wgmma kernels built: {sorted(hopper)}")
+          + ["mm_resident_kernel"] * resident_instances + ["rdb_bf16_wgmma_kernel"],
+          f"TMA + wgmma kernels built: {sorted(hopper)}")
     for kernel, ops in hopper.items():
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0 and ops["HMMA"] == 0,
               f"{kernel} is not a TMA + wgmma kernel: {ops}")
-        check(not kernel.startswith("conv3x3") or ops["LDL"] + ops["STL"] == 0,
+        check(not kernel.startswith(("conv3x3", "mm_resident")) or ops["LDL"] + ops["STL"] == 0,
               f"{kernel} uses local memory: {ops}")
     rdb_blocks = {DTYPE_NAME[d]: {**rdb_plan(d), "built": built_rdb_plan(d)} for d in TOLERANCE}
     emit(fused_rdb_blocks=rdb_blocks)
@@ -246,6 +254,13 @@ def build_kernels() -> None:
     for shape, pair in blocks.items():
         check(pair["plan"] == pair["built"], f"mm_grid at {shape}: built {pair['built']}, "
                                              f"mm_grid_plan {pair['plan']}")
+    resident = {f"{m}x{k}x{n}": {"plan": mm_resident_plan(m, k, n),
+                                 "built": built_mm_resident_plan(m, k, n)}
+                for m, k, n in conv_exp.GATE_SHAPES}
+    emit(mm_resident_blocks=resident)
+    for shape, pair in resident.items():
+        check(pair["plan"] == pair["built"], f"mm_resident at {shape}: built {pair['built']}, "
+                                             f"mm_resident_plan {pair['plan']}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     conv = {"plan": conv3x3_plan(*CONV_SHAPE, sms), "built": built_conv3x3_plan(*CONV_SHAPE, sms)}
     emit(conv3x3_blocks={"shape": list(CONV_SHAPE), "sms": sms, **conv})
@@ -253,8 +268,8 @@ def build_kernels() -> None:
                                          f"conv3x3_plan {conv['plan']}")
     emit(dynamic_smem_bytes={
         "conv3x3[64->192, 96 channels a block]": conv["plan"]["smem_bytes"],
-        "mm_resident[k=192, 96 columns a block]": mm_resident_smem_bytes(192, 3),
-        "mm_resident[k=576, 96 columns a block]": mm_resident_smem_bytes(576, 3)})
+        **{f"mm_resident[k={k}, {pair['plan']['bn']} columns a block]": pair["plan"]["smem_bytes"]
+           for (_, k, _), pair in zip(conv_exp.GATE_SHAPES, resident.values())}})
 
 
 def record_rdb_shapes(shapes: dict):
@@ -547,6 +562,21 @@ def one_hot_probes():
                                ("b_identity", code(128, 64), scaled))]
 
 
+def resident_one_hot_probes(k: int):
+    """Exact probes of mm_resident's operand layouts and k split, (name, a,
+    b): a = I (k x k) with b (k x 192) coded by position, so c = reps b; and
+    b (k x k) diagonal, 1, 2, 4 by 64-column box, with a (128 x k) coded, so
+    c's column c is 2^(c // 64 % 3) reps a's.  Each output is one product,
+    the other warpgroup adds exact zeros, and 32 equal products sum exactly
+    in f32: a wrong fragment, swizzle, descriptor or reduction shows as a
+    permutation of the codes."""
+    code = lambda r, c: (torch.arange(r * c, device="cuda") % 251).reshape(r, c)  # noqa: E731
+    scale = 2.0 ** (torch.arange(k, device="cuda") // 64 % 3)
+    return [(name, a.to(torch.bfloat16), b.to(torch.bfloat16))
+            for name, a, b in (("a_identity", torch.eye(k, device="cuda"), code(k, 192)),
+                               ("b_identity", code(128, k), torch.diag(scale)))]
+
+
 def conv_one_hot_probe(shape, cout: int, tap: int):
     """An exact probe of conv3x3's window and weight layouts, (x, w): x coded
     by position (7 * flat index mod 61: integers bf16 holds exactly; a chunk
@@ -567,8 +597,8 @@ def check_tool_kernels() -> None:
     tool's run gives them (its default conv, the five of ``--mm``), smaller
     and ragged ones, which between them take every width the kernels are
     built for: atol/rtol 2e-2 for the products, equality for the conv's copy
-    modes and the one-hot probes of mm_grid and conv3x3, the shape alone for
-    ``dots``."""
+    modes and the one-hot probes of mm_grid, mm_resident and conv3x3, the
+    shape alone for ``dots``."""
     atol, rtol = BF16_TOLERANCE
     b, h, w_, cin, cout, tile = CONV_SHAPE
     for shape, n_out, rows in (((b, h, w_, cin), cout, tile), *CONV_EXTRA_SHAPES):
@@ -602,6 +632,18 @@ def check_tool_kernels() -> None:
                            "shape": [a.shape[0], a.shape[1], bm.shape[1]], "exact": exact,
                            "ok": exact})
         check(exact, f"mm_grid's one-hot probe {name} is not exact")
+    for k in RESIDENT_PROBE_K:
+        for name, a, bm in resident_one_hot_probes(k):
+            exact = {}
+            for reps in RESIDENT_PROBE_REPS:
+                out = mm_resident(a, bm, reps)
+                torch.cuda.synchronize()
+                exact[f"reps{reps}"] = bool(torch.equal(out, mm_resident_plain(a, bm, reps)))
+            ok = all(exact.values())
+            emit(kernel_check={"kernel": "mm_resident", "probe": name,
+                               "shape": [a.shape[0], a.shape[1], bm.shape[1]], "exact": exact,
+                               "ok": ok})
+            check(ok, f"mm_resident's one-hot probe {name} at k = {k} is not exact: {exact}")
     for m, k, n in (*conv_exp.MM_SHAPES, (256, 96, 160), (128, 64, 64), *MM_RAGGED_SHAPES):
         a, bm = conv_exp.mm_operands(m, k, n, 0.05, torch.device("cuda"), seed=3)
         for name, out, ref in (("mm_grid", mm_grid(a, bm), mm_grid_plain(a, bm)),
@@ -754,7 +796,10 @@ def mm_record(kind: str, m: int, k: int, n: int, launches: int) -> dict:
     """mm_grid or mm_resident at one of the gate's shapes.  One mm_grid
     launch is shorter than its launch through the host, so ``ms``, over 200
     launches between two events, reads the host's launch rate; ``device_ms``
-    is its time inside a CUDA graph of 50 launches."""
+    is its time inside a CUDA graph of 50 launches.  mm_resident's library
+    time is that of ``library_calls`` = 32 ``torch.matmul`` calls, a
+    comparison of throughput: no one call computes 32 resident products, and
+    ``torch.mm`` scaled by reps gives the same output with 1/32 of the work."""
     a, b = conv_exp.mm_operands(m, k, n, 0.05, torch.device("cuda"), seed=3)
     if kind == "mm_grid":
         reps, timed = 1, 200
@@ -776,7 +821,7 @@ def mm_record(kind: str, m: int, k: int, n: int, launches: int) -> dict:
     return {"name": f"{kind}[bf16,{m}x{k}x{n}]", "route": "cuda",
             "source": "real_esrgan_tpu_torch/csrc/mm_probe.cu",
             "replaces": f"tools/pallas_conv_exp.py:{line}", "launches": launches,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_calls": reps,
             **bound(flops, 2 * (m * k + k * n + m * n)), "library_ms": time_ms(library, timed),
             "shape": [m, k, n], "reps": reps, "launches_timed": timed, **on_device,
             "tflops": flops / ms / 1e9, "device_tflops": flops / on_device["device_ms"] / 1e9}

@@ -22,30 +22,45 @@
 //   sector half written.  ops/mm_probe.py::mm_grid_plan states the
 //   geometry, and the launch refuses any other.
 //
-// * mm_resident_forward replaces bench_mosaic_mm_vmem: the same product
-//   repeated `reps` times inside the kernel and summed in f32.  The TPU
-//   kernel keeps all of A and B in VMEM; a block here has 227 KB, so each
-//   block loads its 64-row slice of A (all of k) and a BN-column slice of B
-//   (all of k) into shared memory ONCE and then runs the reps products from
-//   shared memory, with no device-memory read in the loop.  At k = 576,
-//   n = 192 that is 75 KB of A beside 120 KB of B's column half (BN = 96).
-//   Bound: operations (2 m k n reps).  What it reads is how fast mma.sync
-//   fed by ldmatrix (mma_tile.cuh) from shared memory keeps the tensor cores
-//   busy: each warp loads 2 + NF fragments for 4 NF products a k step, and
-//   at k = 576 one block of four warps has an SM to itself.  m is a multiple
-//   of 64, k of 16, n of 32 NF; the wrapper picks NF (5, 4, 3 or 1).
+// * mm_resident_forward replaces bench_mosaic_mm_vmem (the pallas_call at
+//   :159): the same product issued `reps` times inside the kernel, summed
+//   in f32, each product in full from on-chip memory, with no device-memory
+//   read inside the reps loop.  Bound: operations (2 m k n reps; at the gate's
+//   shapes 32 products of 0.6 or 1.8 GFLOP).  The TPU kernel keeps all of A
+//   and B in VMEM.  Here a block computes a 64 x BN tile of C (BN 192, 128 or
+//   64, ops/mm_probe.py::mm_resident_plan) with two consumer warpgroups, each
+//   of which owns one half of k:
+//   - A stays in registers for the whole kernel, in wgmma's A-fragment
+//     layout: each thread loads its 4 words a k step of its warpgroup's half
+//     once, straight from device memory (k up to 576: 18 steps, 72
+//     registers, beside BN / 2 accumulators);
+//   - all of B's BN-column slice stays in shared memory, loaded once by TMA
+//     on one mbarrier as 64 k x 64 column boxes, 128-byte swizzled; a column
+//     box's k rows run on from one box to the next, so k step s starts
+//     2048 s bytes in and LBO is the distance between column boxes;
+//   - each warpgroup issues its k steps as wgmma m64nBNk16 with A from
+//     registers and B MN-major through a descriptor, one commit group a
+//     rep, into one accumulator; so every rep reads only B, from shared
+//     memory: 64 FLOP a byte, against about 32 that the tensor cores need;
+//   - at the end the second warpgroup's partial sums pass through the freed
+//     shared memory, the first adds them once in f32, rounds to bf16 into
+//     128-byte-swizzled boxes, and one thread stores them with TMA.
+//   k is padded to whole 64-k boxes: A's steps past k load zeros and TMA
+//   fills B's rows past k (and columns past n) with zeros, so every k step
+//   of the kernel instance (BN, k boxes) is issued whole, unguarded.  At
+//   (8192, 576) @ (576, 192) that is 128 blocks in one wave and 216 KB of B
+//   a block.  m is a multiple of 64, k of 16 (up to 576), n of 32.
+
+#include <cuda_bf16.h>
 
 #include <algorithm>
 
 #include "hopper.cuh"
-#include "mma_tile.cuh"
 
 namespace {
 
-using tile::bf16;
-using tile::kSkew;
+using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 128;  // mm_resident: four warps, 2 x 2 over the block's tile
 constexpr int kBM = 64;        // rows of C a block
 
 // mm_grid
@@ -58,6 +73,11 @@ constexpr int kAlign = 1024;           // the 128-byte swizzle repeats every 102
 constexpr int kConsumers = 128;        // one warpgroup: warps 0-3
 constexpr int kGridThreads = kConsumers + 32;  // and the producer warp
 constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may have
+
+// the shapes both kernels take: m a multiple of 64, k of 16, n of 32
+bool bad_shape(int m, int k, int n) {
+  return m <= 0 || k <= 0 || n <= 0 || m % kBM || k % 16 || n % 32;
+}
 
 struct GridPlan {
   int bn, stages, grid_x, grid_y, smem_bytes, tx_bytes;
@@ -171,51 +191,154 @@ __global__ void __launch_bounds__(kGridThreads) mm_grid_kernel(
   }
 }
 
-template <int NF>
-__device__ __forceinline__ void store_tile(tile::FragC (&acc)[2][NF], bf16* c, int n, int row0,
-                                           int col0) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NF; ++j)
-      tile::store_bf16(acc[i][j],
-                       [&](int r) { return c + (size_t)(row0 + i * 16 + r) * n + col0 + j * 16; });
+// mm_resident
+constexpr int kResidentThreads = 256;   // two consumer warpgroups, one half of k each
+constexpr int kMaxKBoxes = 9;           // k up to 576: 18 k steps of A a warpgroup in registers
+constexpr int kResidentWidths[3] = {192, 128, 64};  // BN, widest first
+constexpr int kStepBytes = 16 * 128;    // one k step of a column box: 16 rows of 128 bytes
+
+struct ResidentPlan {
+  int bn, k_boxes, grid_x, grid_y, smem_bytes, tx_bytes;
+};
+
+// B's slice (k boxes x BN / 64 column boxes), or the epilogue's f32 partial
+// sums (256 BN bytes) and bf16 tile (128 BN), whichever is larger; 1024
+// bytes to align it; one mbarrier
+int resident_smem_bytes(int k_boxes, int bn) {
+  return kAlign + std::max(k_boxes * (bn / kAtom) * kBoxBytes, 384 * bn) + 8;
 }
 
-template <int NF>
-__global__ void __launch_bounds__(kThreads) mm_resident_kernel(const bf16* __restrict__ a,
-                                                               const bf16* __restrict__ b,
-                                                               bf16* __restrict__ c, int k, int n,
-                                                               int reps) {
-  constexpr int BN = 32 * NF, LDB = BN + kSkew;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lda = k + kSkew;
-  bf16* a_s = reinterpret_cast<bf16*>(smem);
-  bf16* b_s = a_s + kBM * lda;
-  const int warp = threadIdx.x / 32, wr = warp / 2, wc = warp % 2;
+// The launch geometry of mm_resident, as ops/mm_probe.py::mm_resident_plan
+// states it: k in whole 64-k boxes; of the widths whose B slice fits shared
+// memory, the one that leaves the fewest columns past n (the widest on a
+// tie).  Returns false if none fits or k is past what the registers hold.
+bool resident_plan(int m, int k, int n, ResidentPlan* p) {
+  p->k_boxes = (k + kBK - 1) / kBK;
+  p->bn = 0;
+  int cover = 0;
+  for (int bn : kResidentWidths) {
+    const int c = (n + bn - 1) / bn * bn;
+    if (resident_smem_bytes(p->k_boxes, bn) <= kSmemLimit && (p->bn == 0 || c < cover)) {
+      p->bn = bn;
+      cover = c;
+    }
+  }
+  if (p->bn == 0 || p->k_boxes > kMaxKBoxes) return false;
+  p->grid_x = (n + p->bn - 1) / p->bn;
+  p->grid_y = m / kBM;
+  p->smem_bytes = resident_smem_bytes(p->k_boxes, p->bn);
+  p->tx_bytes = p->k_boxes * (p->bn / kAtom) * kBoxBytes;
+  return true;
+}
+
+template <int BN, int KB>
+__global__ void __launch_bounds__(kResidentThreads, 1) mm_resident_kernel(
+    const __grid_constant__ CUtensorMap map_b, const __grid_constant__ CUtensorMap map_c,
+    const bf16* __restrict__ a, int k, int n, int reps) {
+  constexpr int KS = 2 * KB;  // k steps a warpgroup holds: half of k, padded to whole boxes
+  constexpr int kColBoxes = BN / kAtom;
+  constexpr int kTileBytes = KB * kColBoxes * kBoxBytes;
+  constexpr int kRegion = kTileBytes > 384 * BN ? kTileBytes : 384 * BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* tile_b = smem_raw + (kAlign - hopper::smem_u32(smem_raw) % kAlign) % kAlign;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tile_b + kRegion);
+  // warp-uniform as far as the compiler can see (a broadcast lane), so the
+  // wgmma sit on no divergent path
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0), lane = threadIdx.x % 32;
+  const int group = warp / 4;  // the warpgroup: k steps KS group .. + KS - 1
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * BN;
 
-  tile::copy_rows(a_s, lda, a + (size_t)row0 * k, k, kBM, k / 8);
-  tile::copy_rows(b_s, LDB, b + col0, n, k, BN / 8);
-  __syncthreads();
-
-  const bf16* a_w = a_s + wr * 32 * lda;
-  tile::FragC acc[2][NF];
-  tile::zero<NF>(acc);
-  for (int rep = 0; rep < reps; ++rep) {
-    // every repetition reads its fragments from shared memory again
-    asm volatile("" ::: "memory");
-    tile::mma_tile<NF>(tile::RowCursor{a_w}, lda, 16 * lda, b_s + wc * 16 * NF, LDB, k / 16, acc);
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar, 1);
+    hopper::fence_mbarrier_init();
   }
-  store_tile<NF>(acc, c, n, row0 + wr * 32, col0 + wc * 16 * NF);
-}
+  __syncthreads();
+  if (threadIdx.x == 0) {  // all of B's slice, once: column box j's k boxes one after another
+    hopper::mbar_arrive_expect_tx(bar, kTileBytes);
+    for (int j = 0; j < kColBoxes; ++j)
+      for (int kb = 0; kb < KB; ++kb)
+        hopper::tma_load_2d(tile_b + (j * KB + kb) * kBoxBytes, &map_b, bar, col0 + j * kAtom,
+                            kb * kBK);
+  }
 
-size_t resident_smem_bytes(int k, int nf) {
-  return sizeof(bf16) * ((size_t)kBM * (k + kSkew) + (size_t)k * (32 * nf + kSkew));
-}
+  // A, once: wgmma's A fragment of k step s is rows r and r + 8 (r = 16 (warp
+  // % 4) + lane / 4), k 16 s + 2 (lane % 4) + {0, 1} and + 8; zeros past k
+  uint32_t frag[KS][4];
+  {
+    const uint32_t* lo =
+        reinterpret_cast<const uint32_t*>(a + (size_t)(row0 + 16 * (warp % 4) + lane / 4) * k) +
+        lane % 4;
+    const uint32_t* hi = lo + 4 * (size_t)k;  // eight rows on
+    const int steps = k / 16;
+#pragma unroll
+    for (int i = 0; i < KS; ++i) {
+      const int s = group * KS + i;
+      const bool live = s < steps;
+      frag[i][0] = live ? __ldg(lo + 8 * s) : 0u;
+      frag[i][1] = live ? __ldg(hi + 8 * s) : 0u;
+      frag[i][2] = live ? __ldg(lo + 8 * s + 4) : 0u;
+      frag[i][3] = live ? __ldg(hi + 8 * s + 4) : 0u;
+    }
+  }
 
-bool bad_shape(int m, int k, int n, int nf) {
-  return nf < 1 || m <= 0 || k <= 0 || m % kBM || k % 16 || n % (32 * nf);
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  hopper::mbar_wait(bar, 0);
+  const uint64_t desc =
+      hopper::smem_desc(hopper::smem_u32(tile_b) + kStepBytes * KS * group, KB * kBoxBytes, 1024);
+  for (int rep = 0; rep < reps; ++rep) {
+    hopper::fence_operands(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < KS; ++i)  // k step i of the half: 2048 bytes on (128 in the descriptor)
+      hopper::WgmmaRSMN<BN>::mma(acc, frag[i], desc + (kStepBytes >> 4) * i, 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // at most this rep's group and the one before in flight
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_operands(acc);
+
+  // Every wgmma of the block has read B: the second warpgroup's partial sums
+  // go to shared memory, one 16-byte piece a thread and four registers, and
+  // the first adds them, rounds, and writes C's tile after them as BN / 64
+  // boxes of 64 rows x 128 bytes, 128-byte swizzled like the loads.
+  __syncthreads();
+  float4* partial = reinterpret_cast<float4*>(tile_b);
+  const int t = threadIdx.x % 128;
+  if (group == 1) {
+#pragma unroll
+    for (int q = 0; q < BN / 8; ++q)
+      partial[q * 128 + t] = make_float4(acc[4 * q], acc[4 * q + 1], acc[4 * q + 2], acc[4 * q + 3]);
+  }
+  __syncthreads();
+  if (group == 0) {
+    unsigned char* tile_c = tile_b + 256 * BN;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float4 other = partial[j * 128 + t];
+      const float sums[4] = {acc[4 * j] + other.x, acc[4 * j + 1] + other.y,
+                             acc[4 * j + 2] + other.z, acc[4 * j + 3] + other.w};
+      const int col = 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = warp * 16 + lane / 4 + 8 * half;
+        const uint32_t offset = (col / kAtom) * kBoxBytes + r * 128 + (col % kAtom) * 2;
+        *reinterpret_cast<__nv_bfloat162*>(tile_c + (offset ^ ((r % 8) << 4))) =
+            __floats2bfloat162_rn(sums[2 * half], sums[2 * half + 1]);
+      }
+    }
+    hopper::fence_proxy_async();
+    hopper::named_barrier(1, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int j = 0; j < kColBoxes; ++j)
+        if (col0 + j * kAtom < n)
+          hopper::tma_store_2d(&map_c, tile_c + j * kBoxBytes, col0 + j * kAtom, row0);
+      hopper::bulk_commit();
+      hopper::bulk_wait_read();
+    }
+  }
 }
 
 template <int BN>
@@ -237,16 +360,32 @@ int launch_grid(const void* a, const void* b, bf16* c, int m, int k, int n, cons
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NF>
-int launch_resident(const bf16* a, const bf16* b, bf16* c, int m, int k, int n, int reps,
-                    cudaStream_t s) {
-  const size_t smem = resident_smem_bytes(k, NF);
-  cudaError_t err = cudaFuncSetAttribute(mm_resident_kernel<NF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mm_resident_kernel<NF><<<dim3(n / (32 * NF), m / kBM), kThreads, smem, s>>>(a, b, c, k, n, reps);
+template <int BN, int KB>
+int launch_resident(const void* a, const void* b, void* c, int m, int k, int n, int reps,
+                    const ResidentPlan& p, cudaStream_t s) {
+  CUtensorMap map_b, map_c;
+  int err = hopper::encode_bf16_2d(&map_b, b, k, n, kBK, kAtom);
+  if (err != 0) return err;
+  err = hopper::encode_bf16_2d(&map_c, c, m, n, kBM, kAtom);
+  if (err != 0) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      mm_resident_kernel<BN, KB>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem_bytes);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  mm_resident_kernel<BN, KB><<<dim3(p.grid_x, p.grid_y), kResidentThreads, p.smem_bytes, s>>>(
+      map_b, map_c, static_cast<const bf16*>(a), k, n, reps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the instance of width BN for p.k_boxes, KB = 1 .. kMaxKBoxes
+template <int BN, int KB = 1>
+int launch_resident_boxes(const void* a, const void* b, void* c, int m, int k, int n, int reps,
+                          const ResidentPlan& p, cudaStream_t s) {
+  if constexpr (KB > kMaxKBoxes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (p.k_boxes == KB) return launch_resident<BN, KB>(a, b, c, m, k, n, reps, p, s);
+    return launch_resident_boxes<BN, KB + 1>(a, b, c, m, k, n, reps, p, s);
+  }
 }
 
 }  // namespace
@@ -257,8 +396,7 @@ int launch_resident(const bf16* a, const bf16* b, bf16* c, int m, int k, int n, 
 // or hopper::kEncodeErrorBase + the CUresult of a failed tensor-map encode.
 extern "C" int mm_grid_forward(const void* a, const void* b, void* c, int m, int k, int n, int bn,
                                int stages, void* stream) {
-  if (m <= 0 || k <= 0 || n <= 0 || m % kBM || k % 16 || n % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(m, k, n)) return static_cast<int>(cudaErrorInvalidValue);
   const GridPlan p = grid_plan(m, k, n);
   if (bn != p.bn || stages != p.stages) return static_cast<int>(cudaErrorInvalidValue);
   bf16* pc = static_cast<bf16*>(c);
@@ -277,8 +415,7 @@ extern "C" int mm_grid_forward(const void* a, const void* b, void* c, int m, int
 // expected transaction bytes a stage.  Returns 0, or cudaErrorInvalidValue
 // for a shape the kernel does not take.
 extern "C" int mm_grid_built_plan(int m, int k, int n, int* out) {
-  if (m <= 0 || k <= 0 || n <= 0 || m % kBM || k % 16 || n % 32)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(m, k, n)) return static_cast<int>(cudaErrorInvalidValue);
   const GridPlan p = grid_plan(m, k, n);
   const int values[9] = {p.bn, kBK, p.stages, p.grid_x, p.grid_y, kGridThreads, p.smem_bytes, 1,
                          p.tx_bytes};
@@ -286,19 +423,38 @@ extern "C" int mm_grid_built_plan(int m, int k, int n, int* out) {
   return 0;
 }
 
-// c (m, n) = bf16(sum over reps of a @ b), the sum kept in f32.  nf: 1, 3, 4 or 5.
+// c (m, n) = bf16(sum over reps of a @ b), the sum kept in f32; a, b, c
+// bf16 row-major, m a multiple of 64, k of 16 (up to 576), n of 32.  bn and
+// k_boxes must be resident_plan's for this shape (the wrapper passes
+// mm_resident_plan's).  Returns as mm_grid_forward.
 extern "C" int mm_resident_forward(const void* a, const void* b, void* c, int m, int k, int n,
-                                   int reps, int nf, void* stream) {
-  if (bad_shape(m, k, n, nf) || reps < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* pa = static_cast<const bf16*>(a);
-  const bf16* pb = static_cast<const bf16*>(b);
-  bf16* pc = static_cast<bf16*>(c);
+                                   int reps, int bn, int k_boxes, void* stream) {
+  ResidentPlan p;
+  if (bad_shape(m, k, n) || reps < 1 || !resident_plan(m, k, n, &p) || bn != p.bn ||
+      k_boxes != p.k_boxes)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (nf) {
-    case 1: return launch_resident<1>(pa, pb, pc, m, k, n, reps, s);
-    case 3: return launch_resident<3>(pa, pb, pc, m, k, n, reps, s);
-    case 4: return launch_resident<4>(pa, pb, pc, m, k, n, reps, s);
-    case 5: return launch_resident<5>(pa, pb, pc, m, k, n, reps, s);
+  switch (p.bn) {
+    case 64: return launch_resident_boxes<64>(a, b, c, m, k, n, reps, p, s);
+    case 128: return launch_resident_boxes<128>(a, b, c, m, k, n, reps, p, s);
+    case 192: return launch_resident_boxes<192>(a, b, c, m, k, n, reps, p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The geometry mm_resident_forward launches at (m, k, n), into out[11]: bm,
+// bn, k boxes, k steps a warpgroup, warpgroups, threads, the registers a
+// thread holds its operands in (A's fragments and the accumulators),
+// dynamic shared-memory bytes, grid x, grid y, expected transaction bytes.
+// Returns 0, or cudaErrorInvalidValue for a shape the kernel does not take.
+extern "C" int mm_resident_built_plan(int m, int k, int n, int* out) {
+  ResidentPlan p;
+  if (bad_shape(m, k, n) || !resident_plan(m, k, n, &p))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int values[11] = {kBM,          p.bn,         p.k_boxes,  2 * p.k_boxes,
+                          kResidentThreads / 128,     kResidentThreads,
+                          8 * p.k_boxes + p.bn / 2,   p.smem_bytes,
+                          p.grid_x,     p.grid_y,     p.tx_bytes};
+  std::copy(values, values + 11, out);
+  return 0;
 }

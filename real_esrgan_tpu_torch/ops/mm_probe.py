@@ -6,10 +6,11 @@ tools/pallas_conv_exp.py::bench_mosaic_mm and ::bench_mosaic_mm_vmem.
   has no counterpart: the kernel tiles M and N over parallel blocks itself,
   with TMA loads into a ring of shared-memory stages, mbarriers and
   ``wgmma`` (``mm_grid_plan`` states each launch's geometry).
-* ``mm_resident(a, b, reps)``: each block loads its slice of ``a`` and ``b``
-  into shared memory once, runs the product ``reps`` times from there and
-  sums in f32: the tensor cores' rate with no device-memory read in the
-  loop.
+* ``mm_resident(a, b, reps)``: each block holds its slice of ``a`` in
+  registers and its slice of ``b`` in shared memory, loaded once, and issues
+  the product ``reps`` times from there with ``wgmma``, summed in f32: the
+  tensor cores' rate with no device-memory read in the loop
+  (``mm_resident_plan`` states each launch's geometry).
 
 Both launch hand-written CUDA kernels (``csrc/mm_probe.cu``).  The plain
 versions are taken only for tensors on the CPU; a CUDA tensor launches the
@@ -27,9 +28,6 @@ from real_esrgan_tpu_torch.ops.conv3x3 import ENCODE_ERROR_BASE, SMEM_LIMIT
 from real_esrgan_tpu_torch.ops.resize import true_f32
 
 BLOCK_ROWS = 64  # rows of the output one block computes, as kBM in csrc/mm_probe.cu
-# column fragments a warp mm_resident is built for, widest first: what the
-# experiment tool's shapes reach, and 1, which takes every other n
-RESIDENT_FRAGMENTS = (5, 4, 3, 1)
 
 # mm_grid, as csrc/mm_probe.cu builds it
 GRID_BK = 64            # k chunk: one 128-byte swizzle row of bfloat16
@@ -64,21 +62,50 @@ def mm_grid_plan(m: int, k: int, n: int) -> dict:
             "tx_bytes": tx_bytes}
 
 
-def mm_resident_smem_bytes(k: int, nf: int) -> int:
-    """Shared memory of one mm_resident block, as csrc/mm_probe.cu lays it
-    out: 64 rows of a and 32 nf columns of b, 8 elements of padding a row."""
-    return 2 * (BLOCK_ROWS * (k + 8) + k * (32 * nf + 8))
+# mm_resident, as csrc/mm_probe.cu builds it
+RESIDENT_WIDTHS = (192, 128, 64)  # the wgmma widths built, widest first
+RESIDENT_MAX_K_BOXES = 9  # k up to 576: a warpgroup's 18 k steps of a in registers
+RESIDENT_WARPGROUPS = 2   # each holds one half of k
+RESIDENT_THREADS = 128 * RESIDENT_WARPGROUPS
+RESIDENT_PLAN_KEYS = ("bm", "bn", "k_boxes", "k_steps", "warpgroups", "threads",
+                      "operand_registers", "smem_bytes", "grid_x", "grid_y", "tx_bytes")
 
 
-def _column_fragments(k: int, n: int) -> int:
-    """Column fragments of one mm_resident warp: the widest slice of n the
-    kernel is built for (32 nf columns a block) that divides n and fits
-    shared memory."""
-    for nf in RESIDENT_FRAGMENTS:
-        if n % (32 * nf) == 0 and mm_resident_smem_bytes(k, nf) <= SMEM_LIMIT:
-            return nf
-    raise ValueError(f"mm_resident: no slice of a ({k}, {n}) matrix fits a block's "
-                     f"{SMEM_LIMIT} bytes of shared memory beside {BLOCK_ROWS} rows of a")
+def _resident_smem_bytes(k_boxes: int, bn: int) -> int:
+    """1024 bytes of alignment, then b's slice (k boxes of 64 k x bn / 64
+    column boxes) or the epilogue's f32 partial sums (256 bn bytes) and
+    bfloat16 tile (128 bn), whichever is larger, then one mbarrier."""
+    tile = k_boxes * bn // GRID_ATOM * GRID_BOX_BYTES
+    return GRID_ALIGN + max(tile, 384 * bn) + MBARRIER_BYTES
+
+
+def mm_resident_plan(m: int, k: int, n: int) -> dict:
+    """The geometry of one mm_resident launch at (m, k) @ (k, n): a block of
+    ``bm`` = 64 rows and ``bn`` columns, of the built widths whose slice of
+    b fits shared memory the one that leaves the fewest columns past n (the
+    widest on a tie); k padded to ``k_boxes`` boxes of 64, split over two
+    ``warpgroups`` of ``k_steps`` k steps of 16 each; ``threads``; the
+    registers a thread holds its operands in (4 a k step of a's fragments,
+    bn / 2 accumulators); dynamic shared memory; the grid (column blocks,
+    row blocks); and ``tx_bytes``, the bytes of b's slice the mbarrier
+    expects, TMA's zeros past k and n included.  The kernel instance
+    launched is (bn, k_boxes).  Raises ValueError where no slice of b fits
+    shared memory or k is past what the registers hold."""
+    k_boxes = -(-k // GRID_BK)
+    fits = [bn for bn in RESIDENT_WIDTHS if _resident_smem_bytes(k_boxes, bn) <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"mm_resident: no slice of a ({k}, {n}) matrix fits a block's "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    if k_boxes > RESIDENT_MAX_K_BOXES:
+        raise ValueError(f"mm_resident holds a's slice in registers, k up to "
+                         f"{RESIDENT_MAX_K_BOXES * GRID_BK}; got k = {k}")
+    bn = min(fits, key=lambda width: -(-n // width) * width)
+    k_steps = 2 * k_boxes
+    return {"bm": BLOCK_ROWS, "bn": bn, "k_boxes": k_boxes, "k_steps": k_steps,
+            "warpgroups": RESIDENT_WARPGROUPS, "threads": RESIDENT_THREADS,
+            "operand_registers": 4 * k_steps + bn // 2,
+            "smem_bytes": _resident_smem_bytes(k_boxes, bn), "grid_x": -(-n // bn),
+            "grid_y": m // BLOCK_ROWS, "tx_bytes": k_boxes * bn // GRID_ATOM * GRID_BOX_BYTES}
 
 
 def _check(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
@@ -123,8 +150,10 @@ def _library() -> ctypes.CDLL:
         lib.mm_grid_forward.restype = i
         lib.mm_grid_built_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
         lib.mm_grid_built_plan.restype = i
-        lib.mm_resident_forward.argtypes = [vp, vp, vp, i, i, i, i, i, vp]
+        lib.mm_resident_forward.argtypes = [vp, vp, vp, i, i, i, i, i, i, vp]
         lib.mm_resident_forward.restype = i
+        lib.mm_resident_built_plan.argtypes = [i, i, i, ctypes.POINTER(i)]
+        lib.mm_resident_built_plan.restype = i
     return lib
 
 
@@ -143,15 +172,26 @@ def _launch(wrapper, a: torch.Tensor, b: torch.Tensor, call) -> torch.Tensor:
     return out
 
 
+def _built_plan(name: str, keys, m: int, k: int, n: int) -> dict:
+    out = (ctypes.c_int * len(keys))()
+    err = getattr(_library(), f"{name}_built_plan")(m, k, n, out)
+    if err != 0:
+        raise ValueError(f"{name} takes no ({m}, {k}) @ ({k}, {n}): CUDA error {err}")
+    return dict(zip(keys, out))
+
+
 def built_mm_grid_plan(m: int, k: int, n: int) -> dict:
     """The geometry csrc/mm_probe.cu launches at (m, k) @ (k, n), as its
     ``mm_grid_built_plan`` reports it (building the library first if
     needed); ``mm_grid`` refuses to launch unless it is ``mm_grid_plan``'s."""
-    out = (ctypes.c_int * len(_PLAN_KEYS))()
-    err = _library().mm_grid_built_plan(m, k, n, out)
-    if err != 0:
-        raise ValueError(f"mm_grid takes no ({m}, {k}) @ ({k}, {n}): CUDA error {err}")
-    return dict(zip(_PLAN_KEYS, out))
+    return _built_plan("mm_grid", _PLAN_KEYS, m, k, n)
+
+
+def built_mm_resident_plan(m: int, k: int, n: int) -> dict:
+    """The geometry csrc/mm_probe.cu launches mm_resident at, as its
+    ``mm_resident_built_plan`` reports it; the launch refuses any width or
+    k boxes but ``mm_resident_plan``'s."""
+    return _built_plan("mm_resident", RESIDENT_PLAN_KEYS, m, k, n)
 
 
 def mm_grid(a: torch.Tensor, b: torch.Tensor, acc32: bool = True) -> torch.Tensor:
@@ -178,7 +218,8 @@ def mm_grid(a: torch.Tensor, b: torch.Tensor, acc32: bool = True) -> torch.Tenso
 
 def mm_resident(a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tensor:
     """The f32 sum of ``reps`` products ``a @ b``, rounded to bfloat16, each
-    product computed from shared memory; shapes as for ``mm_grid``.
+    product issued in full from registers and shared memory; shapes as for
+    ``mm_grid``, k up to 576, each launch at ``mm_resident_plan(m, k, n)``.
 
     A CPU tensor goes through ``mm_resident_plain``; a CUDA tensor through
     the kernel, which adds one to ``mm_resident.launches``.
@@ -187,11 +228,12 @@ def mm_resident(a: torch.Tensor, b: torch.Tensor, reps: int = 32) -> torch.Tenso
         raise ValueError(f"mm_resident needs reps >= 1, got {reps}")
     _check("mm_resident", a, b)
     (m, k), n = a.shape, b.shape[1]
-    nf = _column_fragments(k, n)
+    plan = mm_resident_plan(m, k, n)  # the C side refuses any other bn or k boxes
     if a.device.type == "cpu":
         return mm_resident_plain(a, b, reps)
     return _launch(mm_resident, a, b, lambda lib, out, stream: lib.mm_resident_forward(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps, nf, stream))
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, k, n, reps, plan["bn"], plan["k_boxes"],
+        stream))
 
 
 mm_grid.launches = 0

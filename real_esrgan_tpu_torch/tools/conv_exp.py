@@ -8,6 +8,7 @@ there before the RDB kernel is redesigned around it.
     python -m real_esrgan_tpu_torch.tools.conv_exp [--batch 8 --size 256 --tile 32]
     python -m real_esrgan_tpu_torch.tools.conv_exp --mm
     python -m real_esrgan_tpu_torch.tools.conv_exp --gate [--gate-threshold TF/s]
+    python -m real_esrgan_tpu_torch.tools.conv_exp --reps-sweep
 
 * default run: ``conv3x3`` (``ops/conv3x3.py``) against the library
   convolution (``F.conv2d``, bfloat16, channels_last) on the same input,
@@ -15,13 +16,19 @@ there before the RDB kernel is redesigned around it.
 * ``--mm``: ``mm_resident`` (``ops/mm_probe.py``) at five shapes;
 * ``--gate``: ``mm_resident`` at the two shapes that dominate a fused-RDB
   product chain, beside ``torch.matmul`` at the same shapes, shape by shape,
-  and one JSON verdict line.
+  and one JSON verdict line;
+* ``--reps-sweep``: ``mm_resident`` at the gate's shapes at 1 to 32 reps,
+  each inside a CUDA graph, and the line through those times: its slope is
+  one rep's products, its intercept the work done once a launch (the loads
+  of A and B, the reduction, the store, the launch itself).  One JSON line a
+  shape.
 
 Each time is that of the launch alone: one warm call, then ``--iters`` calls
 between two CUDA events on the current stream.  One library product at the
-gate's shapes is shorter than its launch through the host, so ``--gate``
-times both sides inside a CUDA graph of ``--iters`` calls, which leaves the
-host's gaps out.  Runs on CUDA; ``--cpu`` runs
+gate's shapes, and ``mm_resident`` at three of the five, is shorter than its
+launch through the host, so ``--mm``, ``--gate`` and ``--reps-sweep`` time
+``mm_resident`` (and ``--gate`` the library) inside a CUDA graph of
+``--iters`` calls, which leaves the host's gaps out.  Runs on CUDA; ``--cpu`` runs
 the kernels' plain versions on the CPU (a check of the tool, not a
 measurement), and without ``--cpu`` a machine with no CUDA device is an
 error.
@@ -45,6 +52,7 @@ from real_esrgan_tpu_torch.ops.mm_probe import mm_grid, mm_resident
 # product (k = 192) and the source-packed wide one (k = 576).
 GATE_SHAPES = ((8192, 192, 192), (8192, 576, 192))
 MM_SHAPES = GATE_SHAPES + ((8192, 96, 160), (8192, 512, 512), (2048, 192, 192))
+SWEEP_REPS = (1, 2, 4, 8, 16, 32)
 NUMERICS_BOUND = 0.15  # max |conv3x3 - library conv| on bf16 inputs in [0, 1)
 
 
@@ -171,6 +179,28 @@ def gate(iters: int, threshold: Optional[float], device: torch.device) -> dict:
     return verdict
 
 
+def reps_sweep(iters: int, device: torch.device) -> list:
+    """``mm_resident`` at each gate shape and each of ``SWEEP_REPS``, timed
+    inside a CUDA graph of ``iters`` calls, and the least-squares line t =
+    fixed + reps * per_rep through the times; prints and returns one record
+    a shape."""
+    records = []
+    for m, k, n in GATE_SHAPES:
+        a, b = mm_operands(m, k, n, 0.01, device, seed=0)
+        times = [time_in_graph(lambda: mm_resident(a, b, reps), iters, device) * 1e3
+                 for reps in SWEEP_REPS]
+        mean_r, mean_t = sum(SWEEP_REPS) / len(SWEEP_REPS), sum(times) / len(times)
+        per_rep = (sum((r - mean_r) * (t - mean_t) for r, t in zip(SWEEP_REPS, times))
+                   / sum((r - mean_r) ** 2 for r in SWEEP_REPS))
+        record = {"reps_sweep": "mm_resident", "shape": [m, k, n], "reps": list(SWEEP_REPS),
+                  "ms": times, "fixed_ms": mean_t - per_rep * mean_r, "per_rep_ms": per_rep,
+                  "per_rep_tflops": 2 * m * k * n / per_rep / 1e9, "device": device_name(device),
+                  "timing": "cuda graph" if device.type == "cuda" else "host loop"}
+        print(json.dumps(record), flush=True)
+        records.append(record)
+    return records
+
+
 def conv_run(a: argparse.Namespace, device: torch.device) -> None:
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(a.batch, a.size, a.size, a.cin, generator=gen, device=device).to(torch.bfloat16)
@@ -209,6 +239,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "both inside a CUDA graph, and print a JSON verdict: at or above the "
                         "threshold at every shape, a fused-RDB kernel built on hand-written "
                         "tensor-core products unparks")
+    p.add_argument("--reps-sweep", action="store_true",
+                   help="time mm_resident at the fused-RDB shapes at 1 to 32 reps and split "
+                        "its time into the work done once and one rep's products")
     p.add_argument("--gate-threshold", type=float, default=None,
                    help="TF/s; default: at each shape, half of what torch.matmul reaches "
                         "there in the same run")
@@ -216,16 +249,19 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: Optional[Sequence[str]] = None) -> Optional[dict]:
-    """Runs the tool; returns the verdict of ``--gate``, else None."""
+def main(argv: Optional[Sequence[str]] = None):
+    """Runs the tool; returns the verdict of ``--gate``, the records of
+    ``--reps-sweep``, else None."""
     a = build_parser().parse_args(argv)
     device = resolve_device(a.cpu)
     print(f"device: {device_name(device)}", flush=True)
     if a.gate:
         return gate(a.iters, a.gate_threshold, device)
+    if a.reps_sweep:
+        return reps_sweep(a.iters, device)
     if a.mm:
         for m, k, n in MM_SHAPES:
-            bench_mm_resident(m, k, n, a.iters, device)
+            bench_mm_resident(m, k, n, a.iters, device, timer=time_in_graph)
     else:
         conv_run(a, device)
     return None

@@ -281,6 +281,20 @@ def test_tool_gate_prints_one_json_verdict(capsys, threshold):
     assert sum(line.startswith("{") for line in lines) == 1
 
 
+def test_tool_reps_sweep_splits_fixed_from_per_rep_time(capsys):
+    records = conv_exp.main(["--cpu", "--reps-sweep", "--iters", "1"])
+    lines = [json.loads(line) for line in capsys.readouterr().out.strip().splitlines()[1:]]
+    assert lines == records and [tuple(r["shape"]) for r in records] == list(conv_exp.GATE_SHAPES)
+    for r in records:
+        assert r["reps"] == list(conv_exp.SWEEP_REPS) and len(r["ms"]) == len(r["reps"])
+        assert r["device"] == "cpu" and r["timing"] == "host loop"
+        # the least-squares line passes through the mean of the points
+        mean_r = sum(r["reps"]) / len(r["reps"])
+        assert r["fixed_ms"] + r["per_rep_ms"] * mean_r == pytest.approx(sum(r["ms"]) / len(r["ms"]))
+        m, k, n = r["shape"]
+        assert r["per_rep_tflops"] == pytest.approx(2 * m * k * n / r["per_rep_ms"] / 1e9)
+
+
 def test_tool_without_cpu_flag_needs_cuda():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present, so the tool runs there")

@@ -30,7 +30,8 @@ from real_esrgan_tpu_torch.ops.fused_rdb import (
     rdb_plan, split_bf16, split_rdb_weights,
 )
 from real_esrgan_tpu_torch.ops.mm_probe import (
-    built_mm_grid_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
+    built_mm_grid_plan, built_mm_resident_plan, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident,
+    mm_resident_plain, mm_resident_plan,
 )
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
 
@@ -428,6 +429,54 @@ def test_mm_resident_matches_plain(cuda, m, k, n, reps):
     assert mm_resident.launches == before + 1
     torch.testing.assert_close(out.float(), mm_resident_plain(a, b, reps).float(),
                                atol=2e-2, rtol=2e-2)
+
+
+# mm_resident's shapes beyond MM_SHAPES: the experiment tool's others and
+# chip_smoke.py's ragged ones (k = 96 and 64, padded to whole boxes; n = 32,
+# 160, a block past n)
+MM_RESIDENT_RAGGED = [(8192, 96, 160), (8192, 512, 512), (2048, 192, 192), (64, 96, 192),
+                      (128, 64, 32), (256, 96, 160)]
+
+
+@pytest.mark.parametrize("reps", [1, 32])
+@pytest.mark.parametrize("m,k,n", MM_RESIDENT_RAGGED)
+def test_mm_resident_ragged_matches_plain(cuda, m, k, n, reps):
+    a, b = _mm_operands(cuda, m, k, n)
+    out = mm_resident(a, b, reps=reps)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), mm_resident_plain(a, b, reps).float(),
+                               atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("m,k,n", MM_SHAPES + MM_RESIDENT_RAGGED)
+def test_mm_resident_launches_at_its_plan(cuda, m, k, n):
+    assert built_mm_resident_plan(m, k, n) == mm_resident_plan(m, k, n)
+
+
+def resident_probes(device, k):
+    """Two exact probes of mm_resident's operand layouts and k split, (name,
+    a, b): a = I (k x k) with b (k x 192) coded by position, so c = reps b;
+    and b (k x k) diagonal, 1, 2, 4 by 64-column box, with a (128 x k)
+    coded, so c's column c is 2^(c // 64 % 3) reps a's.  Each output is one
+    product (the other warpgroup adds exact zeros), and 32 equal bf16
+    products sum exactly in f32: a wrong fragment, swizzle, descriptor or
+    reduction shows as a permutation of the codes."""
+    code = lambda r, c: (torch.arange(r * c, device=device) % 251).reshape(r, c)  # noqa: E731
+    scale = 2.0 ** (torch.arange(k, device=device) // 64 % 3)
+    return [("a_identity", torch.eye(k, device=device), code(k, 192)),
+            ("b_identity", code(128, k), torch.diag(scale))]
+
+
+@pytest.mark.parametrize("reps", [1, 32])
+@pytest.mark.parametrize("k", [64, 192, 512, 576])
+@pytest.mark.parametrize("probe", [0, 1], ids=["a_identity", "b_identity"])
+def test_mm_resident_one_hot_probes_are_exact(cuda, probe, k, reps):
+    _, a, b = resident_probes(cuda, k)[probe]
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    out = mm_resident(a, b, reps=reps)
+    torch.cuda.synchronize()
+    assert torch.equal(out, mm_resident_plain(a, b, reps))
 
 
 def test_conv_and_mm_wrappers_reject_what_the_kernels_do_not_take(cuda):

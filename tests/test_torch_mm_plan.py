@@ -1,7 +1,7 @@
-"""The geometry and operand layouts of the mm_grid kernel (csrc/mm_probe.cu on
-csrc/hopper.cuh), on the CPU.
+"""The geometry and operand layouts of the two kernels of csrc/mm_probe.cu (on
+csrc/hopper.cuh), mm_grid and mm_resident, on the CPU.
 
-Three models, the executable spec of what the kernel computes where:
+The models, the executable spec of what each kernel computes where:
 
 * ``mm_grid_plan`` at every shape the experiment tool and chip_smoke.py give
   the kernel and at the ragged edges: the block width and grid, the shared
@@ -16,6 +16,13 @@ Three models, the executable spec of what the kernel computes where:
 * The ring of stages (full and empty mbarriers with phase parity) played out
   step by step, and the k chunks with TMA's zero fill past k and n, computed
   block by block against ``mm_grid_plain``.
+* ``mm_resident_plan`` at the same shapes (one wave at the gate's, shared
+  memory and the registers a thread holds its operands in); every lane's
+  loads of its A fragments against wgmma's register layout; b's resident
+  slice (column boxes whose k rows run on from box to box) read back step
+  by step through the descriptors; the two warpgroups' sums meeting in
+  shared memory; and the whole block, step by step as the kernel issues
+  it, against ``mm_resident_plain``.
 """
 
 import numpy as np
@@ -25,7 +32,8 @@ import torch
 from real_esrgan_tpu_torch.ops.conv3x3 import SMEM_LIMIT
 from real_esrgan_tpu_torch.ops.mm_probe import (
     BLOCK_ROWS, GRID_ALIGN, GRID_ATOM, GRID_BK, GRID_BOX_BYTES, GRID_WIDTHS, MBARRIER_BYTES,
-    mm_grid, mm_grid_plain, mm_grid_plan,
+    RESIDENT_WIDTHS, mm_grid, mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain,
+    mm_resident_plan,
 )
 from real_esrgan_tpu_torch.tools import conv_exp
 
@@ -299,3 +307,251 @@ def test_chunk_model_matches_mm_grid_plain(m, k, n):
     torch.testing.assert_close(model, a.float() @ b.float(), atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(model.to(torch.bfloat16), mm_grid_plain(a, b), atol=2e-2, rtol=2e-2)
     assert torch.equal(mm_grid(a, b), mm_grid_plain(a, b))  # the CPU path is the plain version
+
+
+# ---- mm_resident --------------------------------------------------------
+
+# what the kernel must run: the experiment tool's shapes and chip_smoke.py's
+# ragged ones
+RESIDENT_SHAPES = list(conv_exp.MM_SHAPES) + [(64, 96, 192), (128, 64, 32), (128, 96, 160),
+                                              (256, 96, 160), (128, 64, 64)]
+# a thread of a 256-thread block may have 255 registers; its operands leave
+# at least 48 of them to addresses, indices and the epilogue
+OPERAND_REGISTER_BUDGET = 255 - 48
+STEP_BYTES = 16 * 128  # one k step of a column box: 16 rows of 128 bytes
+
+
+@pytest.mark.parametrize("m,k,n", RESIDENT_SHAPES)
+def test_resident_plan_covers_the_output_and_fits_a_block(m, k, n):
+    plan = mm_resident_plan(m, k, n)
+    bn, k_boxes, k_steps = plan["bn"], plan["k_boxes"], plan["k_steps"]
+    assert plan["bm"] == BLOCK_ROWS and bn in RESIDENT_WIDTHS
+    assert (plan["grid_x"] - 1) * bn < n <= plan["grid_x"] * bn
+    assert plan["grid_y"] * BLOCK_ROWS == m
+    # k in whole boxes of 64, two warpgroups of k_steps k steps of 16 each
+    assert (k_boxes - 1) * 64 < k <= k_boxes * 64
+    assert plan["warpgroups"] == 2 and plan["threads"] == 256
+    assert plan["warpgroups"] * k_steps * 16 == k_boxes * 64
+    # no built width leaves fewer columns past n
+    assert plan["grid_x"] * bn == min(-(-n // w) * w for w in RESIDENT_WIDTHS)
+    tile = k_boxes * (bn // 64) * GRID_BOX_BYTES  # b's whole slice, resident
+    assert plan["tx_bytes"] == tile
+    # the epilogue's f32 partial sums and bf16 tile fit where b was
+    assert plan["smem_bytes"] == GRID_ALIGN + max(tile, 256 * bn + 128 * bn) + MBARRIER_BYTES
+    assert plan["smem_bytes"] <= SMEM_LIMIT == 232_448
+    # A's fragments (4 registers a k step) and the accumulators (bn / 2)
+    assert plan["operand_registers"] == 4 * k_steps + bn // 2 <= OPERAND_REGISTER_BUDGET
+
+
+def test_resident_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        mm_resident_plan(64, 4096, 32)  # b's slice alone is 512 KB
+    with pytest.raises(ValueError, match="registers"):
+        mm_resident_plan(64, 640, 32)  # fits shared memory; a's 20 k steps a warpgroup do not fit
+    assert mm_resident_plan(64, 576, 32)["k_steps"] == 18
+
+
+@pytest.mark.parametrize("m,k,n", conv_exp.GATE_SHAPES)
+def test_resident_gate_shapes_run_in_one_wave(m, k, n):
+    plan = mm_resident_plan(m, k, n)
+    assert plan["grid_x"] == 1 and plan["grid_x"] * plan["grid_y"] <= SMS
+    assert plan["bn"] == n == 192 and plan["k_steps"] * 32 == k  # no padded k step
+
+
+def a_fragment_loads(k, k_steps):
+    """The kernel's loads of A, (warpgroup, thread, k step, register): the
+    32-bit word (two bf16) of the block's rows it reads, as
+    csrc/mm_probe.cu computes it (lo = row r's words + lane % 4, hi = lo +
+    4 k, eight rows on; step s adds 8 s words, registers 2 and 3 four more),
+    and whether the step is live (s < k / 16; else the register is zero)."""
+    g, t, i, q = np.meshgrid(np.arange(2), np.arange(128), np.arange(k_steps), np.arange(4),
+                             indexing="ij")
+    warp, lane = t // 32, t % 32
+    s = g * k_steps + i
+    lo = (16 * warp + lane // 4) * (k // 2) + lane % 4
+    word = lo + 4 * k * (q % 2) + 8 * s + 4 * (q // 2)
+    return word, s < k // 16
+
+
+def wgmma_a_layout(k_steps):
+    """wgmma's A fragment in registers (m64 x k16, bf16): thread t of the
+    warpgroup holds, in register q, row 16 (t // 32) + (t % 32) // 4 + 8
+    (q % 2), k 2 (t % 4) + 8 (q // 2) and the next, of its k step."""
+    g, t, i, q = np.meshgrid(np.arange(2), np.arange(128), np.arange(k_steps), np.arange(4),
+                             indexing="ij")
+    rows = 16 * (t // 32) + (t % 32) // 4 + 8 * (q % 2)
+    cols = 16 * (g * k_steps + i) + 2 * (t % 4) + 8 * (q // 2)
+    return rows, cols
+
+
+@pytest.mark.parametrize("k", [16, 64, 96, 192, 512, 576])
+def test_a_fragment_loads_hold_what_wgmma_expects(k):
+    k_steps = mm_resident_plan(64, k, 64)["k_steps"]
+    word, live = a_fragment_loads(k, k_steps)
+    rows, cols = wgmma_a_layout(k_steps)
+    np.testing.assert_array_equal(word[live] // (k // 2), rows[live])
+    np.testing.assert_array_equal(2 * (word[live] % (k // 2)), cols[live])
+    # every (row, k) of the block's 64 x k slice is loaded once
+    assert np.array_equal(np.sort(word[live]), np.arange(64 * k // 2))
+    assert live.all() == (2 * 16 * k_steps == k)  # only the steps past k are dead
+    assert live.sum() == 64 * k // 2
+
+
+def a_fragments(a_block, k_steps):
+    """What each thread's registers hold, gathered at its loads (zero for a
+    dead step): (warpgroup, k step, 64, 16), laid back out by wgmma's A
+    layout, so each k step's tile reads as rows x 16 k."""
+    k = a_block.shape[1]
+    word, live = a_fragment_loads(k, k_steps)
+    rows, cols = wgmma_a_layout(k_steps)
+    flat = a_block.reshape(-1)
+    tiles = np.zeros((2, k_steps, 64, 16), np.float32)
+    g, _, i, _ = np.meshgrid(np.arange(2), np.arange(128), np.arange(k_steps), np.arange(4),
+                             indexing="ij")
+    for half in range(2):
+        values = np.where(live, flat[np.minimum(2 * word + half, flat.size - 1)], 0.0)
+        tiles[g, i, rows, cols % 16 + half] = values
+    return tiles
+
+
+def test_a_fragments_give_back_each_k_step_of_a():
+    for k in (96, 576):
+        a_block = coded(64, k, seed=k).astype(np.float32)
+        k_steps = mm_resident_plan(64, k, 64)["k_steps"]
+        tiles = a_fragments(a_block, k_steps)
+        padded = np.zeros((64, 32 * 2 * k_steps), np.float32)
+        padded[:, :k] = a_block
+        for g in range(2):
+            for i in range(k_steps):
+                s = g * k_steps + i
+                np.testing.assert_array_equal(tiles[g, i], padded[:, 16 * s:16 * s + 16])
+
+
+def resident_b_smem(b_slice, k_boxes, bn):
+    """b's slice as TMA lays it down: column box j's k box kb at (j k_boxes
+    + kb) 8192 bytes, so a column box's k rows run on from one box to the
+    next; zeros past k and n (TMA's fill)."""
+    padded = np.zeros((64 * k_boxes, bn), np.float32)
+    padded[:b_slice.shape[0], :b_slice.shape[1]] = b_slice
+    smem = np.full(k_boxes * (bn // 64) * GRID_BOX_BYTES // 2, np.nan, np.float32)
+    for j in range(bn // 64):
+        for kb in range(k_boxes):
+            tma_write(smem, (j * k_boxes + kb) * GRID_BOX_BYTES,
+                      padded[64 * kb:64 * kb + 64, 64 * j:64 * j + 64])
+    return smem, padded
+
+
+def resident_desc(k_boxes, k_steps, g, i):
+    """The kernel's descriptor of warpgroup g's k step i: its first step's
+    (start 2048 k_steps g, LBO the distance between column boxes, SBO
+    1024) plus 128 i, 2048 bytes in the 16-byte units of the start field."""
+    base = smem_desc(STEP_BYTES * k_steps * g, k_boxes * GRID_BOX_BYTES, 1024)
+    return base + (STEP_BYTES >> 4) * i
+
+
+@pytest.mark.parametrize("bn", RESIDENT_WIDTHS)
+@pytest.mark.parametrize("k", [64, 96, 192, 576])
+def test_resident_descriptors_give_back_each_k_step_of_b(bn, k):
+    k_boxes = -(-k // 64)
+    k_steps = 2 * k_boxes
+    smem, padded = resident_b_smem(coded(k, bn - 32, seed=k + bn).astype(np.float32), k_boxes, bn)
+    for g in range(2):
+        for i in range(k_steps):
+            s = g * k_steps + i
+            desc = resident_desc(k_boxes, k_steps, g, i)
+            assert desc == smem_desc(STEP_BYTES * s, k_boxes * GRID_BOX_BYTES, 1024)  # no carry
+            step = read_mn_major(smem, desc, bn)
+            np.testing.assert_array_equal(step, padded[16 * s:16 * s + 16])
+    assert not padded[k:].any() and not padded[:, bn - 32:].any()  # TMA's zeros
+
+
+def test_resident_descriptor_with_mm_grid_lbo_is_a_permutation():
+    """Read with mm_grid's LBO (adjacent column boxes), the resident layout
+    gives the wrong columns."""
+    k_boxes = 3
+    smem, padded = resident_b_smem(coded(192, 192, seed=3).astype(np.float32), k_boxes, 192)
+    wrong = read_mn_major(smem, smem_desc(0, GRID_BOX_BYTES, 1024), 192)
+    assert not np.array_equal(wrong, padded[:16])
+
+
+def partial_index(bn):
+    """The float the kernel's second warpgroup writes accumulator register
+    r of thread t to (and the first reads it from): float4 q = r // 4 of
+    the 128 threads' pieces, at q 512 + 4 t + r % 4."""
+    t, reg = np.meshgrid(np.arange(128), np.arange(bn // 2), indexing="ij")
+    return (reg // 4) * 512 + 4 * t + reg % 4
+
+
+@pytest.mark.parametrize("bn", RESIDENT_WIDTHS)
+def test_k_split_sums_meet_in_place_and_the_epilogue_fits(bn):
+    """Each of the second warpgroup's accumulators lands in its own float,
+    read back by the thread of the first that holds the same (row, column);
+    the partial sums take 256 bn bytes, and C's tile after them the boxes
+    TMA stores, 128 bn more, all inside the plan's region."""
+    index = partial_index(bn)
+    assert np.array_equal(np.sort(index.reshape(-1)), np.arange(64 * bn))
+    rows, cols = wgmma_fragment(bn)
+    acc_first = coded(64, bn, seed=1).astype(np.float32)
+    acc_second = coded(64, bn, seed=2).astype(np.float32)
+    partial = np.full(64 * bn, np.nan, np.float32)
+    partial[index] = acc_second[rows, cols]
+    np.testing.assert_array_equal(acc_first[rows, cols] + partial[index],
+                                  (acc_first + acc_second)[rows, cols])
+    tile_c = 256 * bn  # bytes
+    offset = (cols // 64) * GRID_BOX_BYTES + rows * 128 + (cols % 64) * 2
+    address = tile_c + (offset ^ ((rows % 8) << 4))
+    assert address.min() >= 4 * partial.size and tile_c % GRID_ALIGN == 0
+    assert address.max() < 384 * bn
+    smem = np.full(384 * bn // 2, np.nan, np.float32)
+    smem[address // 2] = (acc_first + acc_second)[rows, cols]
+    r, c = np.meshgrid(np.arange(64), np.arange(bn), indexing="ij")
+    stored = smem[swizzle(tile_c + (c // 64) * GRID_BOX_BYTES + r * 128 + (c % 64) * 2) // 2]
+    np.testing.assert_array_equal(stored, acc_first + acc_second)
+
+
+def resident_model(a, b, reps):
+    """mm_resident as the kernel computes it, block by block, in f32: b's
+    slice laid down by TMA, each warpgroup's A fragments gathered at its
+    lanes' loads, its k steps issued rep by rep through their descriptors
+    into its accumulator, the second's partial sums added once to the
+    first's; columns past n not stored."""
+    a, b = a.float().numpy(), b.float().numpy()
+    (m, k), n = a.shape, b.shape[1]
+    plan = mm_resident_plan(m, k, n)
+    bn, k_boxes, k_steps = plan["bn"], plan["k_boxes"], plan["k_steps"]
+    out = np.full((m, n), np.nan, np.float32)
+    rows, cols = wgmma_fragment(bn)
+    index = partial_index(bn)
+    for bx in range(plan["grid_x"]):
+        smem, _ = resident_b_smem(b[:, bx * bn:(bx + 1) * bn], k_boxes, bn)
+        steps = [[read_mn_major(smem, resident_desc(k_boxes, k_steps, g, i), bn)
+                  for i in range(k_steps)] for g in range(2)]
+        for by in range(plan["grid_y"]):
+            frags = a_fragments(a[by * 64:(by + 1) * 64], k_steps)
+            acc = np.zeros((2, 64, bn), np.float32)
+            for _ in range(reps):
+                for g in range(2):
+                    for i in range(k_steps):
+                        acc[g] += frags[g, i] @ steps[g][i]
+            partial = np.zeros(64 * bn, np.float32)
+            partial[index] = acc[1][rows, cols]
+            total = np.zeros((64, bn), np.float32)
+            total[rows, cols] = acc[0][rows, cols] + partial[index]
+            width = min(bn, n - bx * bn)
+            out[by * 64:(by + 1) * 64, bx * bn:bx * bn + width] = total[:, :width]
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("reps", [1, 3])
+@pytest.mark.parametrize("m,k,n", [(64, 96, 192), (128, 64, 32), (128, 96, 160), (64, 576, 192),
+                                   (64, 16, 64), (64, 512, 320)])
+def test_resident_model_matches_mm_resident_plain(m, k, n, reps):
+    rng = np.random.default_rng(m + k + n + reps)
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32)).to(torch.bfloat16)
+    b = torch.from_numpy((rng.standard_normal((k, n)) * 0.05).astype(np.float32)).to(torch.bfloat16)
+    model = resident_model(a, b, reps)
+    assert torch.isfinite(model).all()  # every output element written once
+    torch.testing.assert_close(model, reps * (a.float() @ b.float()), atol=1e-4 * reps, rtol=1e-5)
+    torch.testing.assert_close(model.to(torch.bfloat16).float(),
+                               mm_resident_plain(a, b, reps).float(), atol=2e-2, rtol=2e-2)
+    assert torch.equal(mm_resident(a, b, reps), mm_resident_plain(a, b, reps))  # the CPU route

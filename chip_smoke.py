@@ -48,7 +48,19 @@
    real inputs of all 69 RDBs kept in step 3 (|x| up to about 59, where the
    f32 kernel's three bf16 products have the least room), and checks that
    it raises under autograd (it has no backward);
-8. times each kernel against its plain version, its bound and, where one
+8. drives the second-order degradation (``ops/degradation.py``, stock
+   PyTorch ops, no kernel of its own) under PyTorch's default TF32 flags:
+   at the CLI's geometry (hr 400 -> crop 256, batch 8) one CPU draw for
+   each (up1, up2) applied on the CPU and on the card, and the JAX golden
+   ``tests/data/jax_degrade_b2_hr128.npz`` applied on the card (at least 99%
+   of the 8-bit LR values equal, LR PSNR >= 50 dB, HR crops bit-identical);
+   ``python -m real_esrgan_tpu_torch.scripts.make_degraded_eval`` on the
+   card on the 10 tiles of ``tests/data/tree_sr.png`` (10 aligned pairs,
+   each degraded), scored by ``eval_pair`` with ``--bicubic`` and with the
+   committed weights; ``degrade`` (draw + apply) timed per batch at batch 8
+   and 48 for each (up1, up2), one batch of each size profiled, and the
+   port's bf16 blur timed beside cuDNN's at batch 48;
+9. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
@@ -57,7 +69,7 @@
 
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  f32 phases run with TF32
-off.  Needs one GPU and no network.
+off, the degradation with PyTorch's defaults.  Needs one GPU and no network.
 """
 
 from __future__ import annotations
@@ -74,10 +86,14 @@ import time
 import numpy as np
 import torch
 
+from real_esrgan_tpu_torch import configuration as degrade_cfg
 from real_esrgan_tpu_torch import test as test_cli
 from real_esrgan_tpu_torch.metrics.niqe import NIQE, niqe_features
 from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops import _build
+from real_esrgan_tpu_torch.ops.degradation import (
+    apply_degradation, degrade, draw_degradation, draws_from_arrays,
+)
 from real_esrgan_tpu_torch.ops.conv3x3 import (
     built_conv3x3_plan, conv3x3, conv3x3_plain, conv3x3_plan,
 )
@@ -90,7 +106,7 @@ from real_esrgan_tpu_torch.ops.mm_probe import (
     mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain, mm_resident_plan,
 )
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
-from real_esrgan_tpu_torch.scripts import eval_pair
+from real_esrgan_tpu_torch.scripts import eval_pair, make_degraded_eval
 from real_esrgan_tpu_torch.serve import SRPipeline
 from real_esrgan_tpu_torch.tools import conv_exp
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
@@ -102,6 +118,7 @@ TREE = os.path.join(ROOT, "tests", "data", "tree_lr.png")
 GOLDEN = os.path.join(ROOT, "tests", "data", "jax_sr_tree_crop67x93_f32.npy")
 TREE_SR = os.path.join(ROOT, "tests", "data", "tree_sr.png")
 NIQE_GOLDEN = os.path.join(ROOT, "tests", "data", "jax_niqe_tree_sr.json")
+DEGRADE_GOLDEN = os.path.join(ROOT, "tests", "data", "jax_degrade_b2_hr128.npz")
 CROP = (slice(64, 131), slice(128, 221))  # the golden file's input crop
 
 RDBS_PER_FORWARD = 69  # 23 RRDBs x 3 RDBs
@@ -155,6 +172,16 @@ BF16_TOLERANCE = TOLERANCE[torch.bfloat16]
 # crops of the test image the evaluation path scores: (top, left, height, width)
 EVAL_CROPS = {"a_64x64.png": (0, 0, 64, 64), "b_96x128.png": (100, 200, 96, 128),
               "c_50x70.png": (30, 400, 50, 70)}
+# the degradation: the CLI's geometry (hr 400 -> crop 256, x4) at its batch
+# of 8 and at the trainer's batch of 48 (TrainConfig.batch_size); each
+# (up1, up2) combination picks its own canvases
+DEGRADE_GEO = degrade_cfg.PipelineGeometry(hr_size=400, crop_size=256, scale=4)
+DEGRADE_BATCHES = (8, 48)
+UP_FLAGS = ((False, False), (False, True), (True, False), (True, True))
+# card against the port's CPU on the same draws, and against the JAX golden:
+# 8-bit LR values equal, LR PSNR, HR crops bit-identical
+DEGRADE_LR_EQUAL_SHARE, DEGRADE_LR_PSNR_DB = 0.99, 50.0
+DEGRADE_WARMUP, DEGRADE_TIMED = 3, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -422,19 +449,16 @@ def seam_error(pipe: SRPipeline, wide: np.ndarray, tiled: np.ndarray) -> dict:
     return {"all_8bit": stats(diff), "interior_8bit": stats(interior)}
 
 
-def profile_forward(pipe: SRPipeline, image: np.ndarray) -> dict:
-    """Where one warm forward's time goes on the card: torch.profiler's
-    device activities, their union (busy time) against the host wall clock
-    around the call, and device time by kernel name."""
+def profile_device(call) -> dict:
+    """One call under torch.profiler: its device activities' union (busy
+    time) against the host wall clock around the call, and device time by
+    kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = torch.from_numpy(image)[None].cuda()
-    pipe.apply(x)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe.apply(x)
+        call()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
@@ -450,12 +474,25 @@ def profile_forward(pipe: SRPipeline, image: np.ndarray) -> dict:
         if e.device_type == DeviceType.CUDA:
             ms, n = by_name.get(e.name, (0.0, 0))
             by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "by_name": by_name}
+
+
+def profile_forward(pipe: SRPipeline, image: np.ndarray) -> dict:
+    """Where one warm forward's time goes on the card (``profile_device``),
+    with the RDB kernel's share of the busy time and the six longest kernels."""
+    x = torch.from_numpy(image)[None].cuda()
+    pipe.apply(x)
+    torch.cuda.synchronize()
+    profile = profile_device(lambda: pipe.apply(x))
+    if "by_name" not in profile:
+        return profile
+    by_name = profile.pop("by_name")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
     rdb_ms = sum(ms for name, (ms, _) in by_name.items()
                  if any(kernel in name for kernel in RDB_KERNEL_NAMES))
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "idle_share": 1.0 - busy_us / 1e3 / wall_ms, "fused_rdb_ms": rdb_ms,
-            "fused_rdb_share_of_busy": rdb_ms / (busy_us / 1e3),
+    return {**profile, "fused_rdb_ms": rdb_ms,
+            "fused_rdb_share_of_busy": rdb_ms / profile["device_busy_ms"],
             "top": [[name[:70], ms, n] for name, (ms, n) in top]}
 
 
@@ -759,6 +796,203 @@ def check_niqe() -> None:
     check(abs(card - cpu) <= 1e-3, f"NIQE {card} on the card, {cpu} on the CPU")
 
 
+class pytorch_default_tf32:
+    """PyTorch's default TF32 flags (cuDNN convolutions in TF32, matrix
+    products not) for the block, restored after it: a float32 product or
+    convolution of the degradation that missed its guard would show."""
+
+    def __enter__(self):
+        self.saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+
+    def __exit__(self, *exc):
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
+
+
+def lr_agreement(ours: torch.Tensor, ref: torch.Tensor) -> dict:
+    """Share of equal 8-bit LR values, the largest difference in levels and
+    the PSNR of ``ours`` against ``ref``."""
+    ours, ref = ours.detach().cpu().double(), ref.detach().cpu().double()
+    levels = (torch.round(ours * 255.0) - torch.round(ref * 255.0)).abs()
+    mse = float(((ours - ref) ** 2).mean())
+    return {"equal_share": float((levels == 0).double().mean()), "max_levels": float(levels.max()),
+            "psnr_db": math.inf if mse == 0 else 10.0 * math.log10(1.0 / mse)}
+
+
+def check_lr_agreement(name: str, stats: dict) -> None:
+    check(stats["equal_share"] >= DEGRADE_LR_EQUAL_SHARE and stats["psnr_db"] >= DEGRADE_LR_PSNR_DB,
+          f"{name}: LR agreement {stats} below {DEGRADE_LR_EQUAL_SHARE} / {DEGRADE_LR_PSNR_DB} dB")
+
+
+def degrade_tiles(tree_sr: np.ndarray) -> np.ndarray:
+    """The 2 x 5 grid of 400-pixel uint8 tiles of the 1024 x 2048 test image,
+    as the CLI cuts them."""
+    size = DEGRADE_GEO.hr_size
+    return np.stack([tree_sr[y:y + size, x:x + size]
+                     for y in range(0, tree_sr.shape[0] - size + 1, size)
+                     for x in range(0, tree_sr.shape[1] - size + 1, size)])
+
+
+def check_degrade_card_against_cpu(tiles: np.ndarray) -> None:
+    """The degradation at the CLI's geometry and batch of 8, each (up1, up2):
+    one draw on the CPU, applied on the CPU and, moved there, on the card."""
+    kcfg, dcfg = degrade_cfg.KernelSynthesisConfig(), degrade_cfg.DegradationConfig()
+    hr = torch.from_numpy(tiles[:8])
+    for i, (up1, up2) in enumerate(UP_FLAGS):
+        gen = torch.Generator().manual_seed(100 + i)
+        draws = draw_degradation(gen, 8, DEGRADE_GEO, kcfg, dcfg, up1, up2, augment=True)
+        t0 = time.perf_counter()
+        lr_cpu, hr_cpu = apply_degradation(hr, draws, DEGRADE_GEO, kcfg, dcfg, up1, up2)
+        cpu_seconds = time.perf_counter() - t0
+        lr, hr_card = apply_degradation(hr.cuda(), draws.to("cuda"), DEGRADE_GEO, kcfg, dcfg,
+                                        up1, up2)
+        stats = lr_agreement(lr, lr_cpu)
+        hr_identical = bool(torch.equal(hr_card.cpu(), hr_cpu))
+        emit(degrade_card_vs_cpu={"up1": up1, "up2": up2, "batch": 8, "lr": list(lr.shape),
+                                  "hr_identical": hr_identical, "cpu_seconds": cpu_seconds,
+                                  "branches": {"gaussian": [draws.noise1.gaussian,
+                                                            draws.noise2.gaussian],
+                                               "blur2": draws.blur2, "order": draws.order,
+                                               "methods": [draws.method1, draws.method2,
+                                                           draws.method3]},
+                                  **stats})
+        check(hr_identical, f"degrade ({up1}, {up2}): HR crops differ between the card and the CPU")
+        check_lr_agreement(f"degrade ({up1}, {up2}) card against CPU", stats)
+
+
+def check_degrade_golden() -> None:
+    """The port on the card, applied to the JAX package's own draws, against
+    JAX's LR and HR (tests/test_torch_degradation.py writes the golden)."""
+    with np.load(DEGRADE_GOLDEN) as g:
+        draws = draws_from_arrays({k[6:]: g[k] for k in g.files if k.startswith("draws.")})
+        hr_in, lr_ref, hr_ref = (torch.from_numpy(g[k]) for k in ("hr_uint8", "lr", "hr"))
+        key = int(g["key"])
+    geo = degrade_cfg.PipelineGeometry(hr_size=128, crop_size=64, scale=4)
+    lr, hr = apply_degradation(hr_in.cuda(), draws.to("cuda"), geo,
+                               degrade_cfg.KernelSynthesisConfig(),
+                               degrade_cfg.DegradationConfig(), True, True)
+    stats = lr_agreement(lr, lr_ref)
+    hr_identical = bool(torch.equal(hr.cpu(), hr_ref))
+    emit(degrade_jax_golden={"golden": os.path.relpath(DEGRADE_GOLDEN, ROOT), "key": key,
+                             "hr_identical": hr_identical, **stats})
+    check(hr_identical, "degrade: HR crops differ from the JAX golden")
+    check_lr_agreement("degrade card against the JAX golden", stats)
+
+
+def drive_degraded_eval_cli(tiles: np.ndarray) -> None:
+    """The CLI end to end on the card (no --cpu): 10 tiles of 400, seed 0, 2
+    batches of 8 (the second padded); 10 aligned pairs, each LR more than 2
+    levels from a clean area downscale of its HR; both pairs scored by
+    eval_pair, --bicubic and with the committed weights."""
+    with tempfile.TemporaryDirectory() as tmp:
+        gt_dir, out = os.path.join(tmp, "gt"), os.path.join(tmp, "pairs")
+        os.makedirs(gt_dir)
+        for i, tile in enumerate(tiles):
+            write_png(os.path.join(gt_dir, f"tree_{i:02d}.png"), tile)
+        t0 = time.perf_counter()
+        make_degraded_eval.main(["--gt-dir", gt_dir, "--output-dir", out, "--seed", "0"])
+        seconds = time.perf_counter() - t0
+        lr_dir, hr_dir = os.path.join(out, "LRx4"), os.path.join(out, "GTmod4")
+        names = sorted(os.listdir(lr_dir))
+        check(names == sorted(os.listdir(hr_dir)) and len(names) == len(tiles),
+              f"make_degraded_eval wrote {len(names)} LR files for {len(tiles)} tiles")
+        min_levels = math.inf
+        for name in names:
+            lr, hr = read_png(os.path.join(lr_dir, name)), read_png(os.path.join(hr_dir, name))
+            check(lr.shape == (64, 64, 3) and hr.shape == (256, 256, 3),
+                  f"{name}: LR {lr.shape}, HR {hr.shape}")
+            clean = hr.astype(np.float64).reshape(64, 4, 64, 4, 3).mean(axis=(1, 3))
+            levels = float(np.abs(lr.astype(np.float64) - clean).max())
+            min_levels = min(min_levels, levels)
+            check(levels > 2, f"{name}: LR within {levels} levels of a clean downscale")
+        scores = {}
+        for which, flags in (("bicubic", ["--bicubic"]),
+                             ("inenv10_esrnet_ema", ["--weights", WEIGHTS])):
+            summary = eval_pair.main([*flags, "--lr-dir", lr_dir, "--hr-dir", hr_dir])
+            check(summary["n"] == len(names) and math.isfinite(summary["psnr_mean"]),
+                  f"eval_pair {which}: {summary}")
+            scores[which] = summary["psnr_mean"]
+    emit(degraded_eval_cli={"tiles": len(tiles), "pairs": len(names), "seconds": seconds,
+                            "min_levels_from_clean_downscale": min_levels,
+                            "psnr_mean_db": scores})
+
+
+def time_degrade(tiles: np.ndarray) -> None:
+    """degrade (draw + apply) a batch on the card, between two CUDA events
+    around DEGRADE_TIMED batches after DEGRADE_WARMUP, at each batch size and
+    (up1, up2); then one profiled batch of each size with both flags up."""
+    kcfg, dcfg = degrade_cfg.KernelSynthesisConfig(), degrade_cfg.DegradationConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    host = torch.Generator().manual_seed(0)
+    for batch in DEGRADE_BATCHES:
+        hr = torch.from_numpy(tiles[np.arange(batch) % len(tiles)]).cuda()
+
+        def one(up1, up2):
+            return degrade(gen, hr, DEGRADE_GEO, kcfg, dcfg, True, up1, up2, host)
+        for up1, up2 in UP_FLAGS:
+            for _ in range(DEGRADE_WARMUP):
+                one(up1, up2)
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(DEGRADE_TIMED):
+                lr, _ = one(up1, up2)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / DEGRADE_TIMED
+            check(bool(torch.isfinite(lr).all()), "degrade gave a non-finite LR")
+            emit(degrade_time={"batch": batch, "up1": up1, "up2": up2,
+                               "canvases": [DEGRADE_GEO.canvas1_for(up1),
+                                            DEGRADE_GEO.canvas2_for(up2)],
+                               "ms_per_batch": ms, "images_per_second": batch / ms * 1e3,
+                               "batches_timed": DEGRADE_TIMED})
+        profile = profile_device(lambda: one(True, True))
+        by_name = profile.pop("by_name", {})
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        emit(degrade_profile={"batch": batch, "up1": True, "up2": True, **profile,
+                              "kernel_launches": sum(n for _, n in by_name.values()),
+                              "top5": [[name[:80], ms, n] for name, (ms, n) in top]})
+
+
+def time_degrade_blur() -> None:
+    """The second blur at batch 48 on the up canvas (608 + 20 pixels of
+    reflect padding, per-sample 21 x 21 kernels), as the port takes it (bf16
+    operands, the sum in float64, one rounding) beside cuDNN's bf16 depthwise
+    convolution of the same operands (its own float32 sum, then the
+    rounding): times in a CUDA-event window of 5 calls, and the share of
+    outputs the two round alike."""
+    from real_esrgan_tpu_torch.ops.filter2d import filter2d
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    b, size, k = 48, DEGRADE_GEO.canvas1_for(True), 21
+    x = torch.rand(b, size, size, 3, generator=gen, device="cuda")
+    kernels = torch.rand(b, k, k, generator=gen, device="cuda") ** 4
+    kernels = kernels / kernels.sum(dim=(1, 2), keepdim=True)
+    planes = x.permute(0, 3, 1, 2).reshape(1, b * 3, size, size).bfloat16()
+    planes = torch.nn.functional.pad(planes, (k // 2,) * 4, mode="reflect")
+    weight = kernels.bfloat16().repeat_interleave(3, dim=0)[:, None]
+
+    def library():
+        return torch.nn.functional.conv2d(planes, weight, groups=b * 3)
+    port = filter2d(x, kernels, compute_dtype=torch.bfloat16)
+    cudnn = library().reshape(b, 3, size, size).permute(0, 2, 3, 1).float()
+    emit(degrade_blur={"batch": b, "canvas": size, "kernel": k,
+                       "port_f64_sum_ms": time_ms(lambda: filter2d(x, kernels, torch.bfloat16), 5),
+                       "cudnn_bf16_ms": time_ms(library, 5),
+                       "rounded_alike_share": float((port == cudnn).float().mean())})
+
+
+def drive_degrade(tree_sr: np.ndarray) -> None:
+    """The degradation phase, under PyTorch's default TF32 flags."""
+    tiles = degrade_tiles(tree_sr)
+    with pytorch_default_tf32():
+        check_degrade_card_against_cpu(tiles)
+        check_degrade_golden()
+        drive_degraded_eval_cli(tiles)
+        time_degrade(tiles)
+        time_degrade_blur()
+
+
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
@@ -881,6 +1115,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_trunk_activations(state_dict, trunk_inputs.pop(dtype), dtype)
     check_autograd_guard(state_dict)
+    drive_degrade(read_png(TREE_SR))
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)

@@ -15,6 +15,7 @@ at the trunk's magnitude (|x| up to 60), where f32's split has the least
 room and bf16's rounding the largest absolute steps.
 """
 
+import math
 import os
 
 import pytest
@@ -507,3 +508,82 @@ def test_conv_and_mm_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         mm_resident(torch.zeros(64, 4096, device=cuda, dtype=torch.bfloat16),
                     torch.zeros(4096, 32, device=cuda, dtype=torch.bfloat16))
+
+
+# ------------------------------------------------ the degradation on the card
+# No kernel of the port's own: stock PyTorch ops, held to the port's CPU on the
+# same draws and to the committed JAX golden, with PyTorch's default TF32
+# flags (cuDNN TF32 on), which a missing guard would let through.
+
+DEGRADE_GOLDEN = os.path.join(ROOT, "tests", "data", "jax_degrade_b2_hr128.npz")
+
+
+@pytest.fixture()
+def default_tf32():
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _lr_agreement(ours, ref):
+    ours, ref = ours.cpu().double(), ref.cpu().double()
+    equal = (torch.round(ours * 255) == torch.round(ref * 255)).double().mean().item()
+    mse = ((ours - ref) ** 2).mean().item()
+    return equal, (float("inf") if mse == 0 else 10 * math.log10(1 / mse))
+
+
+@pytest.mark.parametrize("up1,up2", [(False, False), (True, True)])
+def test_degrade_on_the_card_equals_the_cpu_on_the_same_draws(cuda, default_tf32, up1, up2):
+    from real_esrgan_tpu_torch import configuration as cfg
+    from real_esrgan_tpu_torch.ops.degradation import apply_degradation, draw_degradation
+
+    geo, kcfg, dcfg = cfg.PipelineGeometry(160, 128, 4), cfg.KernelSynthesisConfig(), \
+        cfg.DegradationConfig()
+    gen = torch.Generator().manual_seed(7)
+    hr = (torch.rand(4, 160, 160, 3, generator=gen) * 255).to(torch.uint8)
+    draws = draw_degradation(gen, 4, geo, kcfg, dcfg, up1, up2, augment=True)
+    lr_cpu, hr_cpu = apply_degradation(hr, draws, geo, kcfg, dcfg, up1, up2)
+    lr, hr_card = apply_degradation(hr.to(cuda), draws.to(cuda), geo, kcfg, dcfg, up1, up2)
+    assert torch.equal(hr_card.cpu(), hr_cpu)
+    equal, psnr = _lr_agreement(lr, lr_cpu)
+    assert equal >= 0.99 and psnr >= 50.0, (equal, psnr)
+
+
+def test_degrade_on_the_card_matches_the_jax_golden(cuda, default_tf32):
+    import numpy as np
+
+    from real_esrgan_tpu_torch import configuration as cfg
+    from real_esrgan_tpu_torch.ops.degradation import apply_degradation, draws_from_arrays
+
+    with np.load(DEGRADE_GOLDEN) as g:
+        draws = draws_from_arrays({k[6:]: g[k] for k in g.files if k.startswith("draws.")})
+        hr_in, lr_ref, hr_ref = (torch.from_numpy(g[k]) for k in ("hr_uint8", "lr", "hr"))
+    lr, hr = apply_degradation(hr_in.to(cuda), draws.to(cuda), cfg.PipelineGeometry(128, 64, 4),
+                               cfg.KernelSynthesisConfig(), cfg.DegradationConfig(), True, True)
+    assert torch.equal(hr.cpu(), hr_ref)
+    equal, psnr = _lr_agreement(lr, lr_ref)
+    assert equal >= 0.99 and psnr >= 50.0, (equal, psnr)
+
+
+def test_make_degraded_eval_runs_on_cuda_and_raises_without_it(tmp_path):
+    """Without --cpu the CLI runs on the card where there is one, and raises
+    where there is none."""
+    import numpy as np
+
+    from real_esrgan_tpu_torch.scripts import make_degraded_eval
+    from real_esrgan_tpu_torch.utils.imgio import read_png, save_image_rgb
+
+    gt = tmp_path / "gt"
+    gt.mkdir()
+    save_image_rgb(str(gt / "a.png"), np.random.default_rng(0).random((128, 64, 3)))
+    args = ["--gt-dir", str(gt), "--output-dir", str(tmp_path / "out"), "--hr-size", "64",
+            "--crop-size", "32", "--batch-size", "4"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_degraded_eval.main(args)
+        return
+    make_degraded_eval.main(args)
+    names = sorted(os.listdir(tmp_path / "out" / "LRx4"))
+    assert names == ["a_000.png", "a_001.png"]
+    assert read_png(str(tmp_path / "out" / "LRx4" / names[0])).shape == (8, 8, 3)

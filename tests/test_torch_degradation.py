@@ -1,0 +1,357 @@
+"""Port parity of the fused second-order degradation,
+real_esrgan_tpu_torch/ops/degradation.py, against
+real_esrgan_tpu/ops/degradation.py on the CPU.
+
+torch's RNG is not JAX's, so the port's ``degrade`` is a draw step and a
+deterministic apply step.  ``jax_draw_arrays`` replays the JAX key tree
+(degradation.py:153-247 and the nested splits of ``_batch_scale``,
+``_mixed_noise``, ``gaussian_noise``/``poisson_noise``, the kernel samplers
+and ``paired_random_crop``) with the JAX package's own random functions, so
+``apply_degradation`` runs on JAX's draws and is compared with
+``jax.jit(degrade)`` on the same key: the HR crops bit-identical in every
+case, and over all the cases' LR values at least 99% equal on 8-bit levels
+with a PSNR >= 50 dB.  The blurs, the JPEG roundings and the Poisson level
+counts turn a last-bit difference into a changed pixel or block now and
+then; the bound leaves room for that and for nothing systematic.
+
+The draw step is held to JAX's distributions on 4096 samples (KS for
+continuous values, frequencies within 4 sigma for discrete ones).
+
+``python tests/test_torch_degradation.py`` writes the JAX golden
+``tests/data/jax_degrade_b2_hr128.npz`` that ``chip_smoke.py`` holds the
+card to; ``test_golden_regenerates_exactly`` keeps it equal to the JAX
+package.
+"""
+
+import functools
+import math
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if __name__ == "__main__":
+    sys.path.insert(0, ROOT)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+import pytest  # noqa: E402
+import scipy.stats  # noqa: E402
+import torch  # noqa: E402
+
+from real_esrgan_tpu import configuration as jcfg  # noqa: E402
+from real_esrgan_tpu.ops import degradation as jdeg  # noqa: E402
+from real_esrgan_tpu.ops.augment import random_orientation  # noqa: E402
+from real_esrgan_tpu_torch import configuration as tcfg  # noqa: E402
+from real_esrgan_tpu_torch.ops import degradation as tdeg  # noqa: E402
+from test_torch_blur_kernels import jax_kernel_draws  # noqa: E402
+
+GOLDEN = os.path.join(ROOT, "tests", "data", "jax_degrade_b2_hr128.npz")
+# the whole-pipeline cases: keys 0-7, the (up1, up2, augment) combinations
+# in turn; test_cases_cover_every_branch holds them to every branch
+GEO = dict(hr_size=160, crop_size=128, scale=4)
+BATCH = 4
+COMBOS = [(False, False, True), (True, True, False), (True, False, True), (False, True, False)]
+CASES = [(key, *COMBOS[key % 4]) for key in range(8)]
+LR_EQUAL_SHARE, LR_PSNR_DB = 0.99, 50.0
+N_DRAWS = 4096
+KCFG, DCFG = jcfg.KernelSynthesisConfig(), jcfg.DegradationConfig()
+TKCFG, TDCFG = tcfg.KernelSynthesisConfig(), tcfg.DegradationConfig()
+
+
+def _noise_draws(key, b, canvas, gaussian_prob, sigma_range, scale_range, gray_prob):
+    """One ``_mixed_noise`` stage; either family draws its normals from the
+    same two keys with the same shapes."""
+    k_coin, k_sig, k_sc, k_gray, k_n = jax.random.split(key, 5)
+    k_col, k_g = jax.random.split(k_n)
+    return {"gaussian": jax.random.uniform(k_coin) <= gaussian_prob,
+            "gray": (jax.random.uniform(k_gray, (b,)) < gray_prob).astype(jnp.float32),
+            "sigma": jax.random.uniform(k_sig, (b,), minval=sigma_range[0], maxval=sigma_range[1]),
+            "scale": jax.random.uniform(k_sc, (b,), minval=scale_range[0], maxval=scale_range[1]),
+            "normal": jax.random.normal(k_col, (b, canvas, canvas, 3), jnp.float32),
+            "normal_gray": jax.random.normal(k_g, (b, canvas, canvas, 1), jnp.float32)}
+
+
+@functools.partial(jax.jit, static_argnames=("b", "geo", "kcfg", "dcfg", "up1", "up2", "augment"))
+def _jax_draws(key, b, geo, kcfg, dcfg, up1, up2, augment):
+    (k_orient, k_k1, k_k2, k_sinc, k_blur1, k_rs1, k_noise1, k_q1, k_blur2, k_rs2, k_noise2,
+     k_order, k_rs3, k_q2, k_crop, _) = jax.random.split(key, 16)
+    d = {}
+    if augment:
+        for i, v in enumerate(random_orientation(k_orient, b)):
+            d[f"orientation.{i}"] = v
+    for name, k, stage in (("kernel1", k_k1, 1), ("kernel2", k_k2, 2), ("sinc", k_sinc, "final")):
+        for field, v in jax_kernel_draws(jax.random.split(k, b), kcfg, stage).items():
+            d[f"{name}.{field}"] = v
+    d["blur1"] = jax.random.uniform(k_blur1, (b,)) <= dcfg.first_blur_prob
+    k_s1, k_m1 = jax.random.split(k_rs1)
+    d["scale1"] = jdeg._batch_scale(k_s1, up1, dcfg.resize_probs1, dcfg.resize_range1)
+    d["method1"] = jax.random.randint(k_m1, (), 0, 3)
+    for stage, k, canvas in ((1, k_noise1, geo.canvas1_for(up1)),
+                             (2, k_noise2, geo.canvas2_for(up2))):
+        noise = _noise_draws(k, b, canvas, getattr(dcfg, f"gaussian_noise_prob{stage}"),
+                             getattr(dcfg, f"noise_range{stage}"),
+                             getattr(dcfg, f"poisson_scale_range{stage}"),
+                             getattr(dcfg, f"gray_noise_prob{stage}"))
+        d.update({f"noise{stage}.{f}": v for f, v in noise.items()})
+    d["quality1"] = jax.random.uniform(k_q1, (b,), minval=dcfg.jpeg_range1[0],
+                                       maxval=dcfg.jpeg_range1[1])
+    d["blur2"] = jax.random.uniform(k_blur2) < dcfg.second_blur_prob
+    k_s2, k_m2 = jax.random.split(k_rs2)
+    d["scale2"] = jdeg._batch_scale(k_s2, up2, dcfg.resize_probs2, dcfg.resize_range2)
+    d["method2"] = jax.random.randint(k_m2, (), 0, 3)
+    d["method3"] = jax.random.randint(k_rs3, (), 0, 3)
+    d["quality2"] = jax.random.uniform(k_q2, (b,), minval=dcfg.jpeg_range2[0],
+                                       maxval=dcfg.jpeg_range2[1])
+    d["order"] = jax.random.uniform(k_order) < 0.5
+    k_t, k_l = jax.random.split(k_crop)
+    high = (geo.hr_size - geo.crop_size) // geo.scale + 1
+    d["crop_top"] = jax.random.randint(k_t, (b,), 0, high)
+    d["crop_left"] = jax.random.randint(k_l, (b,), 0, high)
+    return d
+
+
+def jax_draw_arrays(key, b, geo, kcfg, dcfg, up1, up2, augment) -> dict:
+    """JAX's draws for ``degrade(key, ...)``, as ``draws_to_arrays`` lays
+    them out."""
+    return {k: np.asarray(v) for k, v in _jax_draws(key, b=b, geo=geo, kcfg=kcfg, dcfg=dcfg,
+                                                     up1=up1, up2=up2, augment=augment).items()}
+
+
+_jax_degrade = jax.jit(jdeg.degrade, static_argnames=("geo", "kcfg", "dcfg", "augment", "up1",
+                                                       "up2"))
+
+
+def smooth_batch(b: int, size: int, seed: int) -> np.ndarray:
+    """Seeded uint8 images: sinusoids and ramps with a little noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    imgs = [np.stack([0.5 + 0.4 * np.sin(6.28 * (xx * (i + 1) + yy)), yy, xx * 0.8 + 0.1], -1)
+            for i in range(b)]
+    imgs = np.stack(imgs) + rng.normal(0, 0.05, (b, size, size, 3))
+    return (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
+
+
+def compare_lr(ours: np.ndarray, ref: np.ndarray) -> dict:
+    """Share of equal 8-bit LR values, PSNR and largest level difference."""
+    lo, lr_ = np.round(ours * 255.0), np.round(ref * 255.0)
+    mse = float(np.mean((ours.astype(np.float64) - ref) ** 2))
+    return {"equal_share": float((lo == lr_).mean()),
+            "psnr_db": math.inf if mse == 0 else 10.0 * math.log10(1.0 / mse),
+            "max_levels": float(np.abs(lo - lr_).max())}
+
+
+def _branches(arrays: dict, up1: bool, up2: bool, augment: bool) -> dict:
+    return {"up1": up1, "up2": up2, "augment": augment,
+            "gaussian1": bool(arrays["noise1.gaussian"]),
+            "gaussian2": bool(arrays["noise2.gaussian"]), "blur2": bool(arrays["blur2"]),
+            "order": bool(arrays["order"])}
+
+
+def test_cases_cover_every_branch():
+    geo = jcfg.PipelineGeometry(**GEO)
+    seen = set()
+    for key, up1, up2, augment in CASES:
+        arrays = jax_draw_arrays(jax.random.PRNGKey(key), 1, geo, KCFG, DCFG, up1, up2, augment)
+        seen |= set(_branches(arrays, up1, up2, augment).items())
+    names = ("up1", "up2", "augment", "gaussian1", "gaussian2", "blur2", "order")
+    assert seen == {(n, v) for n in names for v in (False, True)}
+
+
+def _run_case(key, up1, up2, augment):
+    """(port LR, JAX LR, port HR, JAX HR) of one case, the port on JAX's draws."""
+    geo, tgeo = jcfg.PipelineGeometry(**GEO), tcfg.PipelineGeometry(**GEO)
+    hr = smooth_batch(BATCH, GEO["hr_size"], key)
+    jkey = jax.random.PRNGKey(key)
+    ref_lr, ref_hr = (np.asarray(v) for v in _jax_degrade(jkey, hr, geo, KCFG, DCFG,
+                                                          augment=augment, up1=up1, up2=up2))
+    draws = tdeg.draws_from_arrays(jax_draw_arrays(jkey, BATCH, geo, KCFG, DCFG, up1, up2,
+                                                   augment))
+    lr, hr_crop = tdeg.apply_degradation(torch.from_numpy(hr), draws, tgeo, TKCFG, TDCFG,
+                                         up1, up2)
+    return lr.numpy(), ref_lr, hr_crop.numpy(), ref_hr
+
+
+@pytest.fixture(scope="module")
+def pipeline_results():
+    return {case: _run_case(*case) for case in CASES}
+
+
+@pytest.mark.parametrize("key,up1,up2,augment", CASES)
+def test_pipeline_on_jax_draws_matches_jax(pipeline_results, key, up1, up2, augment):
+    """Each case: the HR crops bit-identical, the LR of JAX's shape and on
+    8-bit levels; its LR agreement is printed (pytest -s)."""
+    lr, ref_lr, hr, ref_hr = pipeline_results[(key, up1, up2, augment)]
+    assert lr.shape == ref_lr.shape and hr.shape == ref_hr.shape
+    np.testing.assert_array_equal(hr, ref_hr)
+    np.testing.assert_allclose(lr * 255.0, np.round(lr * 255.0), atol=1e-4)
+    print(f"key {key} up1 {up1} up2 {up2} augment {augment}: {compare_lr(lr, ref_lr)}")
+
+
+def test_pipeline_lr_agrees_with_jax_over_every_case(pipeline_results):
+    """All the cases' LR values together: at least 99% equal on 8-bit
+    levels, PSNR >= 50 dB.  One bf16 rounding of a blur that lands the
+    other way (the sum's order is the only difference there) can move a
+    JPEG block and, through the later stages, a tenth of one sample, so a
+    single batch of four can fall below 99% on its own."""
+    ours = np.concatenate([r[0] for r in pipeline_results.values()])
+    ref = np.concatenate([r[1] for r in pipeline_results.values()])
+    stats = compare_lr(ours, ref)
+    print(f"all {len(CASES)} cases: {stats}")
+    assert stats["equal_share"] >= LR_EQUAL_SHARE and stats["psnr_db"] >= LR_PSNR_DB, stats
+
+
+# ------------------------------------------------------------------ golden
+
+GOLDEN_GEO = dict(hr_size=128, crop_size=64, scale=4)
+
+
+def make_golden() -> dict:
+    """The card's JAX golden: a seeded uint8 batch of 2 at hr 128, crop 64,
+    up1 = up2 = True, augment on, for the first key whose draws give
+    Gaussian noise in one stage and Poisson in the other with the second
+    blur on; JAX's draws (``draws.*``), LR and HR."""
+    geo = jcfg.PipelineGeometry(**GOLDEN_GEO)
+    hr = smooth_batch(2, GOLDEN_GEO["hr_size"], 0)
+    for key in range(64):
+        arrays = jax_draw_arrays(jax.random.PRNGKey(key), 2, geo, KCFG, DCFG, True, True, True)
+        if arrays["noise1.gaussian"] != arrays["noise2.gaussian"] and arrays["blur2"]:
+            break
+    lr, hr_crop = _jax_degrade(jax.random.PRNGKey(key), hr, geo, KCFG, DCFG, augment=True,
+                               up1=True, up2=True)
+    return {"key": np.int64(key), "hr_uint8": hr, "lr": np.asarray(lr),
+            "hr": np.asarray(hr_crop), **{f"draws.{k}": v for k, v in arrays.items()}}
+
+
+def test_golden_regenerates_exactly():
+    golden = make_golden()
+    with np.load(GOLDEN) as committed:
+        assert sorted(committed.files) == sorted(golden)
+        for name, value in golden.items():
+            np.testing.assert_array_equal(committed[name], value, err_msg=name)
+    assert os.path.getsize(GOLDEN) < 2 * 1024 * 1024
+
+
+def test_port_matches_the_golden_on_the_cpu():
+    """What chip_smoke.py checks on the card, here on the CPU."""
+    with np.load(GOLDEN) as g:
+        draws = tdeg.draws_from_arrays({k[6:]: g[k] for k in g.files if k.startswith("draws.")})
+        lr, hr = tdeg.apply_degradation(torch.from_numpy(g["hr_uint8"]), draws,
+                                        tcfg.PipelineGeometry(**GOLDEN_GEO), TKCFG, TDCFG,
+                                        True, True)
+        np.testing.assert_array_equal(hr.numpy(), g["hr"])
+        stats = compare_lr(lr.numpy(), g["lr"])
+    assert draws.noise1.gaussian != draws.noise2.gaussian and draws.blur2
+    assert stats["equal_share"] >= LR_EQUAL_SHARE and stats["psnr_db"] >= LR_PSNR_DB, stats
+
+
+# ------------------------------------------------------------------ draws
+
+def _frequencies_within_4_sigma(ours, ref, values) -> None:
+    ours, ref = np.asarray(ours), np.asarray(ref)
+    for v in values:
+        p = (ref == v).mean()
+        sigma = math.sqrt(max(p * (1 - p), 1.0 / len(ref)) * (1.0 / len(ref) + 1.0 / len(ours)))
+        assert abs((ours == v).mean() - p) <= 4 * sigma, (v, (ours == v).mean(), p)
+
+
+def _ks(ours, ref) -> None:
+    assert scipy.stats.ks_2samp(np.asarray(ours), np.asarray(ref)).pvalue > 1e-3
+
+
+@pytest.mark.parametrize("up1,up2", [(False, False), (True, True)])
+def test_per_batch_draws_follow_jax(up1, up2):
+    """Scales (keep, down and up), modes, noise families, second blur and
+    order, one draw a batch, over 4096 batches."""
+    geo = jcfg.PipelineGeometry(hr_size=32, crop_size=16, scale=4)
+    keys = jax.random.split(jax.random.PRNGKey(21), N_DRAWS)
+    ref = jax.jit(jax.vmap(lambda k: _jax_draws(k, b=1, geo=geo, kcfg=KCFG, dcfg=DCFG, up1=up1,
+                                                up2=up2, augment=False)))(keys)
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    host = torch.Generator().manual_seed(21)
+    ours = [tdeg.draw_batch_choices(host, TDCFG, up1, up2) for _ in range(N_DRAWS)]
+    ours = {k: np.array([o[k] for o in ours]) for k in ours[0]}
+    for name in ("scale1", "scale2"):
+        _frequencies_within_4_sigma(ours[name] == 1.0, ref[name] == 1.0, (False, True))
+        _ks(ours[name][ours[name] != 1.0], ref[name][ref[name] != 1.0])
+        assert (ours[name] >= 1.0).all() if (up1 if name == "scale1" else up2) else (
+            ours[name] <= 1.0).all()
+    for name in ("method1", "method2", "method3"):
+        _frequencies_within_4_sigma(ours[name], ref[name], (0, 1, 2))
+    for name, jname in (("gaussian1", "noise1.gaussian"), ("gaussian2", "noise2.gaussian"),
+                        ("blur2", "blur2"), ("order", "order")):
+        _frequencies_within_4_sigma(ours[name], ref[jname], (False, True))
+
+
+def test_per_sample_draws_follow_jax():
+    """Orientation, first-blur gate, noise strengths and gray masks, JPEG
+    qualities and crop corners of a batch of 4096, and the normals."""
+    geo = jcfg.PipelineGeometry(hr_size=32, crop_size=16, scale=4)
+    ref = jax_draw_arrays(jax.random.PRNGKey(22), N_DRAWS, geo, KCFG, DCFG, False, False, True)
+    ours = tdeg.draws_to_arrays(tdeg.draw_degradation(
+        torch.Generator().manual_seed(22), N_DRAWS, tcfg.PipelineGeometry(32, 16, 4), TKCFG,
+        TDCFG, augment=True))
+    assert set(ours) == set(ref)
+    for name, values in (("orientation.0", range(4)), ("orientation.1", (False, True)),
+                         ("orientation.2", (False, True)), ("blur1", (True,)),
+                         ("noise1.gray", (0.0, 1.0)), ("noise2.gray", (0.0, 1.0)),
+                         ("crop_top", range(5)), ("crop_left", range(5))):
+        _frequencies_within_4_sigma(ours[name], ref[name], values)
+    for name in ("noise1.sigma", "noise1.scale", "noise2.sigma", "noise2.scale",
+                 "quality1", "quality2"):
+        _ks(ours[name], ref[name])
+    for name in ("noise1.normal", "noise2.normal_gray"):
+        _ks(ours[name].ravel()[:N_DRAWS * 4], ref[name].ravel()[:N_DRAWS * 4])
+    for name, value in ours.items():
+        assert value.shape == ref[name].shape, name
+
+
+# --------------------------------------------------------------- the port
+
+def test_degrade_is_deterministic_per_seed_and_quantized():
+    geo = tcfg.PipelineGeometry(hr_size=64, crop_size=32, scale=4)
+    hr = torch.from_numpy(smooth_batch(2, 64, 3))
+
+    def run(seed):
+        return tdeg.degrade(torch.Generator().manual_seed(seed), hr, geo, TKCFG, TDCFG,
+                            up1=True, up2=False)
+    (lr1, hr1), (lr2, hr2), (lr3, _) = run(5), run(5), run(6)
+    assert lr1.shape == (2, 8, 8, 3) and hr1.shape == (2, 32, 32, 3)
+    assert torch.equal(lr1, lr2) and torch.equal(hr1, hr2) and not torch.equal(lr1, lr3)
+    assert lr1.min() >= 0 and lr1.max() <= 1
+    np.testing.assert_allclose(lr1.numpy() * 255, np.round(lr1.numpy() * 255), atol=1e-4)
+
+
+def test_exact_poisson_sampler_runs_with_its_generator():
+    geo = tcfg.PipelineGeometry(hr_size=64, crop_size=32, scale=4)
+    dcfg = tcfg.DegradationConfig(poisson_approx=False, gaussian_noise_prob1=0.0,
+                                  gaussian_noise_prob2=0.0)
+    hr = torch.from_numpy(smooth_batch(2, 64, 4))
+    draws = tdeg.draw_degradation(torch.Generator().manual_seed(1), 2, geo, TKCFG, dcfg)
+    assert not draws.noise1.gaussian and not draws.noise2.gaussian
+    outs = [tdeg.apply_degradation(hr, draws, geo, TKCFG, dcfg,
+                                   generator=torch.Generator().manual_seed(s))[0]
+            for s in (1, 1, 2)]
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+
+
+def test_draws_round_trip_through_arrays():
+    geo = tcfg.PipelineGeometry(hr_size=64, crop_size=32, scale=4)
+    for augment in (False, True):
+        draws = tdeg.draw_degradation(torch.Generator().manual_seed(2), 2, geo, TKCFG, TDCFG,
+                                      up1=True, augment=augment)
+        back = tdeg.draws_from_arrays(tdeg.draws_to_arrays(draws.to("cpu")))
+        arrays, again = tdeg.draws_to_arrays(draws), tdeg.draws_to_arrays(back)
+        assert arrays.keys() == again.keys()
+        for name in arrays:
+            np.testing.assert_array_equal(arrays[name], again[name], err_msg=name)
+        assert back.scale1 == draws.scale1 and back.order == draws.order
+        assert (back.orientation is None) == (not augment)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_default_matmul_precision", "highest")
+    golden = make_golden()
+    np.savez_compressed(GOLDEN, **golden)
+    print(f"wrote {GOLDEN}: key {int(golden['key'])}, {os.path.getsize(GOLDEN)} bytes")

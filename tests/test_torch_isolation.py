@@ -21,7 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(real_esrgan_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-forbidden = ("jax", "jaxlib", "flax", "optax", "orbax", "real_esrgan_tpu")
+forbidden = ("jax", "jaxlib", "flax", "optax", "orbax", "real_esrgan_tpu", "cv2")
 held = sorted(m for m in sys.modules
               if any(m == f or m.startswith(f + ".") for f in forbidden))
 print(json.dumps({"imported": names, "forbidden": held}))
@@ -37,5 +37,8 @@ def test_port_and_chip_smoke_import_no_jax():
     for module in ("ops.fused_rdb", "ops._build", "models.rrdbnet", "models.convert",
                    "train.checkpoint", "utils.imgio", "parallel.tiling", "serve", "inference",
                    "ops.resize", "ops.conv3x3", "ops.mm_probe", "utils.meters", "metrics.niqe",
-                   "test", "scripts.eval_pair", "tools.conv_exp", "tools.rdb_probe"):
+                   "test", "scripts.eval_pair", "tools.conv_exp", "tools.rdb_probe",
+                   "configuration", "ops.color", "ops.filter2d", "ops.usm", "ops.diffjpeg",
+                   "ops.augment", "ops.blur_kernels", "ops.noise", "ops.degradation",
+                   "ops.host", "scripts.make_degraded_eval"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

@@ -57,10 +57,23 @@
    ``python -m real_esrgan_tpu_torch.scripts.make_degraded_eval`` on the
    card on the 10 tiles of ``tests/data/tree_sr.png`` (10 aligned pairs,
    each degraded), scored by ``eval_pair`` with ``--bicubic`` and with the
-   committed weights; ``degrade`` (draw + apply) timed per batch at batch 8
-   and 48 for each (up1, up2), one batch of each size profiled, and the
-   port's bf16 blur timed beside cuDNN's at batch 48;
-9. times each kernel against its plain version, its bound and, where one
+   committed weights, and again with ``--cpu``: identical HR files and at
+   least 99% equal LR values, since every draw of a batch comes from (seed,
+   batch start) on the CPU; ``degrade`` (draw + apply) timed per batch at
+   batch 8 and 48 for each (up1, up2), one batch of each size profiled, and
+   the port's bf16 blur timed beside cuDNN's at batch 48;
+9. drives the stage-1 trainer, ``python -m
+   real_esrgan_tpu_torch.train_realesrnet``, in-process at full width,
+   batch 48, hr 400 -> crop 256, bf16, remat, on 96 crops of
+   ``tests/data/tree_sr.png`` with 3 validation images: ``--epochs 1``,
+   then ``--epochs 2 --resume auto`` (the checkpoint must reach step 4,
+   epoch 2); the RDB kernel launches no time in the training steps and 69
+   times an image in validation; times ESRNet images/s over 8 steps after 3
+   warm-up steps with the peak memory, splits one step into the
+   degradation, the forward and backward and the guarded update, profiles
+   one step, and holds one f32 update at 2 RRDBs on the card against the
+   CPU (loss and grad norm within 1e-4 relative, TF32 off);
+10. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
@@ -182,6 +195,14 @@ UP_FLAGS = ((False, False), (False, True), (True, False), (True, True))
 # 8-bit LR values equal, LR PSNR, HR crops bit-identical
 DEGRADE_LR_EQUAL_SHARE, DEGRADE_LR_PSNR_DB = 0.99, 50.0
 DEGRADE_WARMUP, DEGRADE_TIMED = 3, 10
+# the trainer: batch 48 (TrainConfig.batch_size) on 96 crops of 400 of
+# tests/data/tree_sr.png (2 steps an epoch), validated on 3 crops of 300
+# (centre-cropped to 256, LR 64); imgs/s over 8 steps after 3 warm-up steps;
+# card against CPU on one f32 update at 2 RRDBs
+TRAIN_BATCH, TRAIN_CROPS, TRAIN_STRIDE = 48, 96, 64
+TRAIN_VALID_CORNERS = ((0, 0), (400, 900), (700, 1700))
+TRAIN_WARMUP, TRAIN_TIMED = 3, 8
+TRAIN_CARD_CPU_REL = 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -883,7 +904,9 @@ def drive_degraded_eval_cli(tiles: np.ndarray) -> None:
     """The CLI end to end on the card (no --cpu): 10 tiles of 400, seed 0, 2
     batches of 8 (the second padded); 10 aligned pairs, each LR more than 2
     levels from a clean area downscale of its HR; both pairs scored by
-    eval_pair, --bicubic and with the committed weights."""
+    eval_pair, --bicubic and with the committed weights.  Then the same with
+    --cpu: the set does not depend on the device, so the HR files are
+    identical and at least 99% of the 8-bit LR values equal."""
     with tempfile.TemporaryDirectory() as tmp:
         gt_dir, out = os.path.join(tmp, "gt"), os.path.join(tmp, "pairs")
         os.makedirs(gt_dir)
@@ -912,9 +935,27 @@ def drive_degraded_eval_cli(tiles: np.ndarray) -> None:
             check(summary["n"] == len(names) and math.isfinite(summary["psnr_mean"]),
                   f"eval_pair {which}: {summary}")
             scores[which] = summary["psnr_mean"]
+        cpu_out = os.path.join(tmp, "pairs_cpu")
+        t0 = time.perf_counter()
+        make_degraded_eval.main(["--gt-dir", gt_dir, "--output-dir", cpu_out, "--seed", "0",
+                                 "--cpu"])
+        cpu_seconds = time.perf_counter() - t0
+        hr_identical, equal, total = True, 0, 0
+        for name in names:
+            with open(os.path.join(hr_dir, name), "rb") as a, \
+                    open(os.path.join(cpu_out, "GTmod4", name), "rb") as b:
+                hr_identical &= a.read() == b.read()
+            lr_card = read_png(os.path.join(lr_dir, name))
+            lr_cpu = read_png(os.path.join(cpu_out, "LRx4", name))
+            equal, total = equal + int((lr_card == lr_cpu).sum()), total + lr_card.size
+    card_vs_cpu = {"cpu_seconds": cpu_seconds, "hr_files_identical": hr_identical,
+                   "lr_equal_share": equal / total}
     emit(degraded_eval_cli={"tiles": len(tiles), "pairs": len(names), "seconds": seconds,
                             "min_levels_from_clean_downscale": min_levels,
-                            "psnr_mean_db": scores})
+                            "psnr_mean_db": scores, "card_vs_cpu": card_vs_cpu})
+    check(hr_identical, "make_degraded_eval: HR files differ between the card and --cpu")
+    check(equal / total >= DEGRADE_LR_EQUAL_SHARE,
+          f"make_degraded_eval: {equal / total} of LR values equal between the card and --cpu")
 
 
 def time_degrade(tiles: np.ndarray) -> None:
@@ -991,6 +1032,209 @@ def drive_degrade(tree_sr: np.ndarray) -> None:
         drive_degraded_eval_cli(tiles)
         time_degrade(tiles)
         time_degrade_blur()
+
+
+def train_crops(tree_sr: np.ndarray) -> list:
+    """TRAIN_CROPS crops of 400 of the 1024 x 2048 test image, at a stride of
+    64 in row-major order (260 fit)."""
+    size, stride = DEGRADE_GEO.hr_size, TRAIN_STRIDE
+    corners = [(y, x) for y in range(0, tree_sr.shape[0] - size + 1, stride)
+               for x in range(0, tree_sr.shape[1] - size + 1, stride)]
+    return [tree_sr[y:y + size, x:x + size] for y, x in corners[:TRAIN_CROPS]]
+
+
+def drive_train_cli(tree_sr: np.ndarray) -> int:
+    """The trainer's CLI in-process at full width (23 RRDBs, 64 channels,
+    growth 32), batch 48, hr 400 -> crop 256, bf16, remat, on 96 crops of the
+    test image with a validation directory of TRAIN_VALID images: --epochs 1,
+    then --epochs 2 --resume auto.  fused_rdb's launches are counted apart
+    for the validation passes (69 an image) and the training steps (none).
+    Returns the validation launches."""
+    from real_esrgan_tpu_torch import train_realesrnet as trainer
+    from real_esrgan_tpu_torch.train import checkpoint as ckpt_lib
+
+    validations = []
+    validate = trainer.validate
+
+    def counted(*args, **kwargs):
+        before = fused_rdb.launches
+        score = validate(*args, **kwargs)
+        validations.append((fused_rdb.launches - before, len(args[2]), score))
+        return score
+
+    cwd = os.getcwd()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, valid_dir = os.path.join(tmp, "train"), os.path.join(tmp, "valid")
+        os.makedirs(train_dir), os.makedirs(valid_dir)
+        for i, crop in enumerate(train_crops(tree_sr)):
+            write_png(os.path.join(train_dir, f"crop_{i:03d}.png"), crop)
+        for i, (y, x) in enumerate(TRAIN_VALID_CORNERS):
+            write_png(os.path.join(valid_dir, f"valid_{i}.png"), tree_sr[y:y + 300, x:x + 300])
+        trainer.validate = counted
+        os.chdir(tmp)
+        try:
+            for epochs, resume in ((1, []), (2, ["--resume", "auto"])):
+                args = trainer.build_parser().parse_args(
+                    ["--train-dir", train_dir, "--valid-dir", valid_dir,
+                     "--test-lr-dir", os.path.join(tmp, "none"),
+                     "--test-hr-dir", os.path.join(tmp, "none"), "--batch-size",
+                     str(TRAIN_BATCH), "--epochs", str(epochs), "--exp-name", "chip_smoke",
+                     "--no-tensorboard", *resume])
+                fused_rdb.launches, seen = 0, len(validations)
+                t0 = time.perf_counter()
+                trainer.main(args)
+                seconds = time.perf_counter() - t0
+                launched = validations[seen:]
+                validation = sum(n for n, _, _ in launched)
+                runs.append({"epochs": epochs, "resume": bool(resume), "seconds": seconds,
+                             "fused_rdb_launches_training": fused_rdb.launches - validation,
+                             "fused_rdb_launches_validation": validation,
+                             "validated_images": sum(k for _, k, _ in launched),
+                             "valid_niqe": [score for _, _, score in launched]})
+            tree = ckpt_lib.load_checkpoint(os.path.join(tmp, "results", "chip_smoke", "g_last"))
+        finally:
+            os.chdir(cwd)
+            trainer.validate = validate
+    steps_per_epoch = TRAIN_CROPS // TRAIN_BATCH
+    finite = all(bool(torch.isfinite(v).all()) for v in tree["params"].values())
+    emit(train_cli={"model": "23 RRDBs, 64 channels, growth 32, bf16, remat",
+                    "batch": TRAIN_BATCH, "geometry": "hr 400 -> crop 256, x4",
+                    "train_crops": TRAIN_CROPS, "steps_per_epoch": steps_per_epoch,
+                    "checkpoint": {"step": tree["step"], "epoch": tree["epoch"],
+                                   "update_count": int(tree["opt_state"]["count"]),
+                                   "rejected_total": int(tree["guard"]["rejected_total"]),
+                                   "params_finite": finite},
+                    "runs": runs})
+    check(tree["step"] == 2 * steps_per_epoch and tree["epoch"] == 2,
+          f"trainer checkpoint at step {tree['step']}, epoch {tree['epoch']}")
+    check(finite, "trainer checkpoint holds non-finite parameters")
+    for run in runs:
+        check(run["fused_rdb_launches_training"] == 0,
+              f"the training steps launched fused_rdb {run['fused_rdb_launches_training']} times")
+        check(run["validated_images"] == len(TRAIN_VALID_CORNERS)
+              and run["fused_rdb_launches_validation"] == RDBS_PER_FORWARD * run["validated_images"],
+              f"validation launched fused_rdb {run['fused_rdb_launches_validation']} times for "
+              f"{run['validated_images']} images")
+        check(all(math.isfinite(score) for score in run["valid_niqe"]), "validation NIQE")
+    return sum(run["fused_rdb_launches_validation"] for run in runs)
+
+
+def time_train(gpu: str) -> None:
+    """ESRNet images/s at batch 48, full width, bf16, remat: TRAIN_TIMED
+    steps of make_train_step between two CUDA events after TRAIN_WARMUP, on
+    SyntheticHRDataset batches with the trainer's up/down coins; the peak
+    memory; one step split by CUDA events into the degradation, the forward
+    and backward, and the guarded update; one step under torch.profiler."""
+    from real_esrgan_tpu_torch.configuration import ModelConfig, TrainConfig
+    from real_esrgan_tpu_torch.train import esrnet
+    from real_esrgan_tpu_torch.train_realesrnet import SyntheticHRDataset
+
+    cfg = TrainConfig()
+    model = esrnet.build_generator(ModelConfig(), cfg, "cuda",
+                                   generator=torch.Generator().manual_seed(0))
+    opt = esrnet.build_optimizer(cfg, 1000)
+    step = esrnet.make_train_step(
+        model, opt, DEGRADE_GEO, degrade_cfg.KernelSynthesisConfig(),
+        degrade_cfg.DegradationConfig(), cfg.ema_decay, seed=cfg.seed,
+        reject_limit=cfg.grad_reject_limit, rollback_after=cfg.rollback_after,
+        reject_mult=cfg.grad_reject_mult, clamp_mode=cfg.train_clamp)
+    state = esrnet.init_state(model, opt)
+    data = SyntheticHRDataset(DEGRADE_GEO.hr_size, length=2 * TRAIN_BATCH, seed=0)
+    batches = [torch.from_numpy(np.stack([data.load(b * TRAIN_BATCH + i, None)
+                                          for i in range(TRAIN_BATCH)])).cuda() for b in range(2)]
+    coins = np.random.default_rng((0, 0, 17))
+    dcfg = degrade_cfg.DegradationConfig()
+    flags = [(bool(coins.random() < dcfg.resize_probs1[0]),
+              bool(coins.random() < dcfg.resize_probs2[0]))
+             for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    before = fused_rdb.launches
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TRAIN_WARMUP):
+        state, metrics = step(state, batches[i % 2], *flags[i])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_TIMED):
+        state, metrics = step(state, batches[i % 2], *flags[i])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / TRAIN_TIMED
+    check(bool(torch.isfinite(metrics["loss"])), "a timed training step gave a non-finite loss")
+    check(fused_rdb.launches == before, "a training step launched fused_rdb")
+    emit(train_time={"card": gpu, "batch": TRAIN_BATCH, "steps_timed": TRAIN_TIMED,
+                     "warmup_steps": TRAIN_WARMUP, "up_flags": flags[TRAIN_WARMUP:],
+                     "ms_per_step": ms, "images_per_second": TRAIN_BATCH / ms * 1e3,
+                     "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "loss": float(metrics["loss"]), "grad_norm": float(metrics["grad_norm"]),
+                     "rejected_total": int(state.guard.rejected_total)})
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    events[0].record()
+    lr, hr = step.degrade_batch(state, batches[0], True, True)
+    events[1].record()
+    loss, grads = step.loss_and_grads(state.params, lr, hr)
+    events[2].record()
+    step.apply(state, grads)
+    events[3].record()
+    torch.cuda.synchronize()
+    split = {name: events[i].elapsed_time(events[i + 1])
+             for i, name in enumerate(("degradation", "forward_backward", "update"))}
+    profile = profile_device(lambda: step(state, batches[0], True, True))
+    by_name = profile.pop("by_name", {})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    emit(train_profile={"card": gpu, "batch": TRAIN_BATCH, "up1": True, "up2": True,
+                        "event_split_ms": split, **profile,
+                        "kernel_launches": sum(n for _, n in by_name.values()),
+                        "top6": [[name[:80], ms, n] for name, (ms, n) in top]})
+
+
+def check_train_card_vs_cpu() -> None:
+    """One update with the degradation bypassed, at 2 RRDBs (64 channels,
+    growth 32) in f32 with TF32 off, on the same params and batch (2 LR
+    crops of 64) on the card and on the CPU: loss and grad norm within
+    TRAIN_CARD_CPU_REL relative."""
+    from real_esrgan_tpu_torch.configuration import ModelConfig, TrainConfig
+    from real_esrgan_tpu_torch.train import esrnet
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for the card-against-CPU update")
+    cfg = TrainConfig(use_bfloat16=False, remat_rrdb=False)
+    rng = np.random.default_rng(6)
+    lr = torch.from_numpy(rng.random((2, 64, 64, 3)).astype(np.float32))
+    hr = torch.from_numpy(rng.random((2, 256, 256, 3)).astype(np.float32))
+    weights, results = None, {}
+    for device in ("cpu", "cuda"):
+        model = esrnet.build_generator(ModelConfig(num_rrdb=2), cfg, device,
+                                       generator=torch.Generator().manual_seed(5))
+        if weights is None:
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        opt = esrnet.build_optimizer(cfg, 10)
+        step = esrnet.make_train_step(model, opt, None, None, None, cfg.ema_decay)
+        state, metrics = step.update(esrnet.init_state(model, opt), lr.to(device), hr.to(device))
+        results[device] = (float(metrics["loss"]), float(metrics["grad_norm"]),
+                           {k: v.cpu() for k, v in state.params.items()})
+    (loss_cpu, gn_cpu, p_cpu), (loss, gn, p) = results["cpu"], results["cuda"]
+    param_diff = max(float((p[k] - p_cpu[k]).abs().max()) for k in p)
+    emit(train_card_vs_cpu={"rrdbs": 2, "dtype": "f32", "tf32": False, "loss": [loss, loss_cpu],
+                            "grad_norm": [gn, gn_cpu],
+                            "loss_rel": abs(loss - loss_cpu) / abs(loss_cpu),
+                            "grad_norm_rel": abs(gn - gn_cpu) / gn_cpu,
+                            "max_param_diff_after_update": param_diff,
+                            "bound_rel": TRAIN_CARD_CPU_REL})
+    check(abs(loss - loss_cpu) <= TRAIN_CARD_CPU_REL * abs(loss_cpu),
+          f"training loss {loss} on the card, {loss_cpu} on the CPU")
+    check(abs(gn - gn_cpu) <= TRAIN_CARD_CPU_REL * gn_cpu,
+          f"grad norm {gn} on the card, {gn_cpu} on the CPU")
+
+
+def drive_train(tree_sr: np.ndarray, gpu: str) -> int:
+    """The trainer phase; returns fused_rdb's validation launches."""
+    launches = drive_train_cli(tree_sr)
+    time_train(gpu)
+    check_train_card_vs_cpu()
+    return launches
 
 
 def bound(flops: float, moved: float) -> dict:
@@ -1115,7 +1359,9 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_trunk_activations(state_dict, trunk_inputs.pop(dtype), dtype)
     check_autograd_guard(state_dict)
-    drive_degrade(read_png(TREE_SR))
+    tree_sr = read_png(TREE_SR)
+    drive_degrade(tree_sr)
+    train_launches = drive_train(tree_sr, gpu)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)
@@ -1125,9 +1371,11 @@ def main() -> int:
     check(f32_err <= 1e-4, f"f32 crop differs from the JAX golden output by {f32_err}")
     check(bf16_psnr >= 40.0, f"bf16 crop PSNR {bf16_psnr:.2f} dB against the JAX golden output")
 
-    emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d]}
+    train_launches = {torch.bfloat16: train_launches, torch.float32: 0}
+    emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],
+                                             "train_validation": train_launches[d]}
                              for d in launches})
-    kernels = [kernel_record(state_dict, d, launches[d] + eval_launches[d])
+    kernels = [kernel_record(state_dict, d, launches[d] + eval_launches[d] + train_launches[d])
                for d in (torch.bfloat16, torch.float32)]
     kernels.append(conv_record(tool_launches["conv3x3"]))
     kernels += [mm_record(kind, m, k, n, tool_launches[kind])

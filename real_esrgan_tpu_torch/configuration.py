@@ -1,10 +1,12 @@
-"""The degradation's configuration: the port's copy of
-``KernelSynthesisConfig``, ``DegradationConfig`` and ``PipelineGeometry``
-from real_esrgan_tpu/configuration.py.
+"""The port's copy of real_esrgan_tpu/configuration.py: the degradation's
+``KernelSynthesisConfig``, ``DegradationConfig`` and ``PipelineGeometry``,
+and the model and trainer configurations ``ModelConfig``, ``TrainConfig``
+and ``GanTrainConfig``, with the same fields and defaults.
 
 They are pure-Python frozen dataclasses (hashable, so usable as cache keys),
 copied rather than imported because the port imports nothing of the JAX
-package.  The training configurations join them with the trainer.
+package.  Fields for loaders the port does not have yet (the native and
+grain loaders, the device pool, the decode cache) keep their defaults.
 """
 
 from __future__ import annotations
@@ -127,3 +129,146 @@ class PipelineGeometry:
     @property
     def canvas2(self) -> int:
         return self.canvas2_for(True)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    in_channels: int = 3
+    out_channels: int = 3
+    upscale_factor: int = 4
+    num_rrdb: int = 23
+    channels: int = 64
+    growth_channels: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Shared trainer knobs (reference config.py:82-150)."""
+
+    exp_name: str = "RealESRNet_baseline"
+    train_image_dir: str = "./data/DIV2K/Real_ESRGAN/train"
+    valid_image_dir: str = "./data/DIV2K/Real_ESRGAN/valid"
+    test_lr_image_dir: str = "./data/Set5/LRbicx4"
+    test_hr_image_dir: str = "./data/Set5/GTmod12"
+
+    batch_size: int = 48
+    num_workers: int = 4
+    # "auto" = native C++ pool, falling back to Python threads;
+    # "grain" = deterministic resumable grain pipeline (data/grain_loader.py);
+    # "threads" = force the Python ThreadedLoader
+    loader: str = "auto"
+    # decoded-image RAM cache budget for the epoch loop (both the C++ pool
+    # and the Python loader): 0 disables; the default holds ~4.6k decoded
+    # 400px crops — prepared-crop datasets stop re-decoding every epoch
+    decoded_cache_bytes: int = 2 * 1024**3
+    # "auto" loader upgrade: when the whole crop set fits this device-memory
+    # budget as one uint8 stack (and the run is single-process), keep it
+    # device-resident and gather batches by index on the device
+    # (data/device_pool.py in the JAX package).  0 disables the device pool.
+    device_pool_budget_bytes: int = 2 * 1024**3
+    epochs: int = 1298
+    lr: float = 2e-4
+    betas: Tuple[float, float] = (0.9, 0.99)
+    ema_decay: float = 0.999
+    seed: int = 0
+    print_frequency: int = 200
+    resume: str = ""
+    # save an epoch checkpoint every N epochs (1 = reference parity; raise it
+    # when checkpoint IO dominates, e.g. short epochs through a remote fs —
+    # best/last copies are still maintained on saving epochs)
+    checkpoint_frequency: int = 1
+    # overlap checkpoint IO with the next epoch's compute (AsyncSaver:
+    # on-device state snapshot + background fetch/serialize; the reference
+    # blocks on torch.save each epoch, train_realesrnet.py:117-129)
+    async_checkpoint: bool = True
+
+    # StepLR for ESRNet (step = epochs // 5, gamma 0.5; config.py:105-106);
+    # 0 means "derive from epochs" so overriding epochs keeps the decay
+    # schedule proportional, as the reference's config module does
+    lr_step_size: int = 0
+    lr_gamma: float = 0.5
+
+    @property
+    def effective_lr_step_size(self) -> int:
+        return self.lr_step_size or max(1, self.epochs // 5)
+
+    # bf16 compute (the counterpart of the reference's CUDA AMP autocast)
+    use_bfloat16: bool = True
+    # checkpoint (rematerialize) each RRDB block during training to bound
+    # activation memory
+    remat_rrdb: bool = True
+
+    # Optimizer hygiene (deviation from the reference, which has none — and
+    # whose long runs depend on divergence not happening).  Two measured
+    # failure modes motivate these knobs (full post-mortem in train/guard.py):
+    # (1) one gradient-overflow step makes raw Adam's second moment inf
+    # FOREVER, silently freezing the run; (2) the RRDB trunk can go
+    # super-critical (forward amplifies ~1e22 with params maxabs 0.19), after
+    # which merely SKIPPING bad updates freezes the run at the diverged
+    # weights.  grad_clip_norm bounds what finite gradients feed Adam (0
+    # disables).  skip_nonfinite_updates enables the step-level guard
+    # (train/guard.py): reject any update whose global grad norm is
+    # non-finite or above grad_reject_limit, and after rollback_after
+    # consecutive rejections restore params from the EMA (a ~1000-step-lagged
+    # healthy copy) and zero Adam's moments.  Limits sit far above the
+    # measured healthy band (global norms 5-50 on InEnv10) so only genuine
+    # divergence is touched.
+    grad_clip_norm: float = 100.0
+    skip_nonfinite_updates: bool = True
+    grad_reject_limit: float = 500.0
+    rollback_after: int = 4
+    # adaptive reject ceiling: reject any step whose global grad norm exceeds
+    # grad_reject_mult x a running average of ACCEPTED norms (guard.gnorm_ref)
+    # — the healthy band moves as loss falls, so the fixed limit alone admits
+    # divergence-ramp steps at 2-10x healthy (the round-4 storm; see
+    # train/guard.py).  0 disables, restoring the fixed-limit-only guard.
+    grad_reject_mult: float = 8.0
+
+    # Training-loss clamp mode (the round-4 root cause fix; full rationale in
+    # models/rrdbnet.py::Generator.clamp):
+    #   "none" — loss on the RAW pre-clamp output (basicsr-upstream RRDBNet
+    #            behavior; default).  The reference's in-forward clamp makes
+    #            the L1 loss blind to output magnitude once pixels saturate,
+    #            removing the restoring force that keeps the RRDB trunk
+    #            sub-critical — the measured InEnv10 collapse.
+    #   "st"   — clamped values, straight-through gradient (rounds 1-4).
+    #   "hard" — the reference's exact clamp (the reference model's forward).
+    # Eval/inference always clamp; this only affects the training loss path.
+    train_clamp: str = "none"
+
+    # linear LR warmup over the first N steps (0 = reference parity: none);
+    # the measured fresh-init divergence fired at step 106 of a cold start
+    lr_warmup_steps: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GanTrainConfig(TrainConfig):
+    """Stage-2 GAN knobs (reference config.py:111-150)."""
+
+    exp_name: str = "RealESRGAN_baseline"
+    epochs: int = 519
+    lr: float = 1e-4
+    resume_d: str = ""
+    resume_g: str = ""
+
+    pixel_weight: float = 1.0
+    content_weights: Tuple[float, ...] = (0.1, 0.1, 1.0, 1.0, 1.0)
+    adversarial_weight: float = 0.1
+
+    # MultiStepLR milestones at 12.5/25/50/75% of epochs, gamma 0.5
+    # (reference config.py:146); empty means "derive from epochs"
+    lr_milestones: Tuple[int, ...] = ()
+    lr_gamma: float = 0.5
+
+    @property
+    def effective_lr_milestones(self) -> Tuple[int, ...]:
+        if self.lr_milestones:
+            return self.lr_milestones
+        return tuple(int(self.epochs * f) for f in (0.125, 0.250, 0.500, 0.750))
+
+    # VGG19 feature taps used by the content loss (reference config.py:131):
+    # torchvision nodes features.{2,7,16,25,34} are the PRE-activation
+    # outputs of these convs
+    vgg_nodes: Tuple[str, ...] = ("conv1_2", "conv2_2", "conv3_4", "conv4_4",
+                                  "conv5_4")
+    vgg_weights_path: str = ""   # torchvision vgg19 .pth; random init if empty

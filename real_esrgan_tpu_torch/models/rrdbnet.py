@@ -12,6 +12,12 @@ Parameter names follow the reference state_dict (``conv1``,
 ``conv4``), so reference ``.pth.tar`` weights load as they are.  Parameters
 are float32; ``dtype`` is the compute type, and every rounding to it happens
 where the JAX module rounds.
+
+For training, ``Generator(plain_rdb=True)`` runs each RDB as ``rdb_plain``
+(the packed math on stock, differentiable convolutions: the RDB kernel has
+no backward), ``remat=True`` recomputes each RRDB in the backward pass
+(``torch.utils.checkpoint``, the counterpart of flax's ``nn.remat``), and
+``clamp``/``st_clamp`` choose the output the loss sees.
 """
 
 from __future__ import annotations
@@ -22,10 +28,31 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from real_esrgan_tpu_torch.ops.fused_rdb import (
-    box_rdb_weights, fused_rdb, lrelu, pack_rdb_weights, scalar_like, split_rdb_weights,
+    box_rdb_weights, fused_rdb, lrelu, pack_rdb_weights, rdb_plain, scalar_like,
+    split_rdb_weights,
 )
+
+
+class _StClamp(torch.autograd.Function):
+    """clamp(0, 1) with a straight-through gradient: the clamped value, and
+    the incoming gradient passed on unchanged (``_st_clamp`` of the JAX
+    generator, whose custom VJP returns ``g``).  A hard clamp's zero gradient
+    outside [0, 1] can leave a saturated network with no gradient at all."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.clamp(0.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad
+
+
+def st_clamp(x: torch.Tensor) -> torch.Tensor:
+    return _StClamp.apply(x)
 
 
 def torch_conv_kernel_init(shape, generator: torch.Generator) -> torch.Tensor:
@@ -104,13 +131,16 @@ class ResidualDenseBlock(nn.Module):
     CUDA kernel on the tensor cores, bfloat16 by TMA and wgmma from weight
     boxes laid out once a pack, float32 by mma.sync as three bfloat16
     products of weights split once a pack; on the CPU its plain version);
+    with ``plain=True`` as well it runs that plain version, ``rdb_plain``,
+    on every device: the same packed math on stock convolutions, which
+    autograd differentiates (the kernel has no backward), for training.
     ``packed=False`` runs the five concat convs as written in the
     reference."""
 
     def __init__(self, channels: int = 64, growth: int = 32, packed: bool = True,
-                 device=None):
+                 device=None, plain: bool = False):
         super().__init__()
-        self.channels, self.growth, self.packed = channels, growth, packed
+        self.channels, self.growth, self.packed, self.plain = channels, growth, packed, plain
         for k in range(5):
             out = growth if k < 4 else channels
             setattr(self, f"conv{k + 1}", Conv3x3(channels + k * growth, out, device))
@@ -162,6 +192,9 @@ class ResidualDenseBlock(nn.Module):
         return self._boxes
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.packed and self.plain:
+            out = rdb_plain(x.permute(0, 2, 3, 1), self.packed_weights(x.dtype))
+            return out.permute(0, 3, 1, 2)
         if self.packed:
             packed = self.packed_weights(x.dtype)
             split = self.split_weights(packed) if x.is_cuda and x.dtype == torch.float32 else None
@@ -180,11 +213,11 @@ class RRDB(nn.Module):
     """Residual-in-residual dense block."""
 
     def __init__(self, channels: int = 64, growth: int = 32, packed: bool = True,
-                 device=None):
+                 device=None, plain: bool = False):
         super().__init__()
-        self.rdb1 = ResidualDenseBlock(channels, growth, packed, device)
-        self.rdb2 = ResidualDenseBlock(channels, growth, packed, device)
-        self.rdb3 = ResidualDenseBlock(channels, growth, packed, device)
+        self.rdb1 = ResidualDenseBlock(channels, growth, packed, device, plain)
+        self.rdb2 = ResidualDenseBlock(channels, growth, packed, device, plain)
+        self.rdb3 = ResidualDenseBlock(channels, growth, packed, device, plain)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = self.rdb3(self.rdb2(self.rdb1(x)))
@@ -194,24 +227,30 @@ class RRDB(nn.Module):
 class Generator(nn.Module):
     """Real-ESRGAN generator, NHWC in and out, values in [0, 1].
 
-    ``clamp=False`` returns the raw pre-clamp output.  Weights are drawn from
-    ``generator`` (a ``torch.Generator``; seed 0 when None) with the JAX
-    package's init functions."""
+    ``clamp=False`` returns the raw pre-clamp output; with ``clamp`` the
+    output is clamped to [0, 1], with a straight-through gradient when
+    ``st_clamp`` (the JAX default) and the hard clamp's otherwise.
+    ``plain_rdb`` runs the RDBs as ``rdb_plain`` (see ``ResidualDenseBlock``)
+    and ``remat`` recomputes each RRDB in the backward pass; both are for
+    training, and the trainer sets them when it builds its model.  Weights
+    are drawn from ``generator`` (a ``torch.Generator``; seed 0 when None)
+    with the JAX package's init functions."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 3,
                  upscale_factor: int = 4, num_rrdb: int = 23, channels: int = 64,
                  growth: int = 32, dtype: torch.dtype = torch.float32,
                  packed: bool = True, clamp: bool = True, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, st_clamp: bool = True,
+                 plain_rdb: bool = False, remat: bool = False):
         super().__init__()
         if upscale_factor not in (1, 2, 4):
             raise ValueError(f"upscale_factor must be 1, 2 or 4, not {upscale_factor}")
         self.upscale_factor = upscale_factor
         self.unshuffle = {1: 4, 2: 2}.get(upscale_factor, 1)
         self.dtype = dtype
-        self.clamp = clamp
+        self.clamp, self.st_clamp, self.remat = clamp, st_clamp, remat
         self.conv1 = Conv3x3(in_channels * self.unshuffle ** 2, channels, device)
-        self.trunk = nn.ModuleList(RRDB(channels, growth, packed, device)
+        self.trunk = nn.ModuleList(RRDB(channels, growth, packed, device, plain_rdb)
                                    for _ in range(num_rrdb))
         self.conv2 = Conv3x3(channels, channels, device)
         self.upsampling1 = nn.Sequential(Conv3x3(channels, channels, device))
@@ -242,10 +281,15 @@ class Generator(nn.Module):
         out1 = self.conv1(out)
         out = out1
         for rrdb in self.trunk:
-            out = rrdb(out)
+            if self.remat and torch.is_grad_enabled():
+                out = checkpoint(rrdb, out, use_reentrant=False)
+            else:
+                out = rrdb(out)
         out = out1 + self.conv2(out)
         for up in (self.upsampling1, self.upsampling2):
             out = _subpixel_upconv(out, up[0].weight, up[0].bias)
         out = lrelu(self.conv3(out))
         out = self.conv4(out).float().permute(0, 2, 3, 1)
-        return out.clamp(0.0, 1.0) if self.clamp else out
+        if not self.clamp:
+            return out
+        return st_clamp(out) if self.st_clamp else out.clamp(0.0, 1.0)

@@ -267,6 +267,13 @@ def draw_degradation(generator: Optional[torch.Generator], batch: int, geo: Pipe
         crop_top=crop_top, crop_left=crop_left, **batch_choices)
 
 
+def generator_seed(*words: int) -> int:
+    """A 63-bit ``torch.Generator`` seed from integers, e.g. (seed, step):
+    one stream per tuple, as the JAX package folds an index into its key."""
+    state = np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
+    return int(state >> np.uint64(1))
+
+
 def _extent(size: int, scale: float) -> int:
     """floor(size * scale) in float32, as the JAX package computes it."""
     return int(np.floor(np.float32(size) * np.float32(scale)))

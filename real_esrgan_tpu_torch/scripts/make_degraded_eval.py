@@ -17,6 +17,13 @@ Each tile draws its own per-sample degradation (kernels, noise, JPEG
 quality) and each batch its own per-batch choices (resize kind, scale and
 mode, noise family), as a training step does, so the set spans the
 severity distribution.  Runs on CUDA; ``--cpu`` runs on the CPU.
+
+The set does not depend on the device: every draw of the batch that starts
+at tile ``start`` comes from a CPU generator seeded by ``(seed, start)``
+(``draw_eval_batch``), as the JAX CLI draws ``fold_in(key(seed), start)``,
+and is moved to the device to be applied.  The up/down coins of the
+canvases come from ``random.Random(seed)``, one pair a batch in order, as
+the JAX CLI draws them.
 """
 
 from __future__ import annotations
@@ -32,8 +39,20 @@ from real_esrgan_tpu_torch import resolve_device
 from real_esrgan_tpu_torch.configuration import (
     DegradationConfig, KernelSynthesisConfig, PipelineGeometry,
 )
-from real_esrgan_tpu_torch.ops.degradation import degrade
+from real_esrgan_tpu_torch.ops.degradation import (
+    DegradationDraws, apply_degradation, draw_degradation, generator_seed,
+)
 from real_esrgan_tpu_torch.utils.imgio import load_image_rgb, natsorted_files, save_image_rgb
+
+
+def draw_eval_batch(seed: int, start: int, batch: int, geo: PipelineGeometry,
+                    kcfg: KernelSynthesisConfig, dcfg: DegradationConfig, up1: bool,
+                    up2: bool) -> DegradationDraws:
+    """Every draw of the batch starting at tile ``start``, on the CPU, from a
+    generator seeded by ``(seed, start)`` alone; no augmentation (the pairs
+    keep the source orientation)."""
+    generator = torch.Generator().manual_seed(generator_seed(seed, start))
+    return draw_degradation(generator, batch, geo, kcfg, dcfg, up1, up2, augment=False)
 
 
 def main(argv=None) -> None:
@@ -80,11 +99,7 @@ def main(argv=None) -> None:
     if not tiles:
         raise SystemExit("no tiles produced — images smaller than --hr-size?")
 
-    # augment=False: pairs stay in the source orientation so a human can
-    # compare them against the GT photo; degradations still randomize.
     coin = random.Random(a.seed)
-    host = torch.Generator().manual_seed(a.seed)
-    generator = torch.Generator(device=device).manual_seed(a.seed)
 
     written = 0
     for start in range(0, len(tiles), a.batch_size):
@@ -93,8 +108,8 @@ def main(argv=None) -> None:
         hr_uint8 = torch.from_numpy(np.stack(batch + batch[:1] * pad)).to(device)
         up1 = coin.random() < dcfg.resize_probs1[0]
         up2 = coin.random() < dcfg.resize_probs2[0]
-        lr, hr = degrade(generator, hr_uint8, geo, kcfg, dcfg, augment=False,
-                         up1=up1, up2=up2, host_generator=host)
+        draws = draw_eval_batch(a.seed, start, a.batch_size, geo, kcfg, dcfg, up1, up2)
+        lr, hr = apply_degradation(hr_uint8, draws.to(device), geo, kcfg, dcfg, up1, up2)
         lr = np.clip(lr.cpu().numpy(), 0.0, 1.0)
         hr = np.clip(hr.cpu().numpy(), 0.0, 1.0)
         for i, name in enumerate(names[start:start + a.batch_size]):

@@ -1,15 +1,25 @@
-"""Generator weight loading: the port of the loaders in
+"""Checkpoints and generator weight loading: the port of
 real_esrgan_tpu/train/checkpoint.py.
 
-Two of the JAX package's three formats load here: compact ``.npz`` snapshots
-(``/``-joined flax paths, f16 stored, loaded as f32) and reference
-``.pth.tar`` checkpoints.  Orbax checkpoint directories need JAX to read;
-``scripts/snapshot_weights.py`` turns one into an ``.npz`` snapshot.
+The trainer's epoch checkpoint is a directory (``g_epoch_N``, and its
+``g_best``/``g_last`` copies) holding one ``torch.save`` file,
+``CHECKPOINT_FILE``, with the JAX trainer's payload: ``epoch``,
+``best_niqe``, ``step``, ``params``, ``ema_params``, ``opt_state`` (the
+update ``count`` and the moments ``mu``/``nu``) and ``guard``, as tensors on
+the CPU, plain dicts and numbers, so it loads with ``weights_only=True``.
+Saves are synchronous.
+
+Generator weights load from three formats: compact ``.npz`` snapshots
+(``/``-joined flax paths, f16 stored, loaded as f32), reference
+``.pth.tar`` checkpoints, and the port's checkpoint directories.  Orbax
+checkpoint directories need JAX to read; ``scripts/snapshot_weights.py``
+turns one into an ``.npz`` snapshot.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Any, Dict
 
 import numpy as np
@@ -45,12 +55,93 @@ def _numpy_globals() -> list:
             *sorted(dtype_classes, key=lambda c: c.__name__)]
 
 
-def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
-    """Generator weights as the port's OIHW state_dict, from either
+CHECKPOINT_FILE = "train_state.pt"
 
-    * a compact ``.npz`` snapshot (``scripts/snapshot_weights.py``), or
+
+def save_checkpoint(path: str, payload: Dict[str, Any]) -> None:
+    """Write ``payload`` (tensors are moved to the CPU) as the checkpoint
+    directory ``path``, replacing one that is there.  The file is written
+    beside its final name and renamed into place."""
+    path = os.path.abspath(path)
+    if os.path.exists(path):
+        shutil.rmtree(path)
+    os.makedirs(path)
+    target = os.path.join(path, CHECKPOINT_FILE)
+    torch.save(_to_cpu(payload), target + ".tmp")
+    os.replace(target + ".tmp", target)
+
+
+def _to_cpu(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    return obj
+
+
+def is_checkpoint_dir(path: str) -> bool:
+    return os.path.isfile(os.path.join(path, CHECKPOINT_FILE))
+
+
+def load_checkpoint(path: str) -> Dict[str, Any]:
+    """The payload of the checkpoint directory ``path``, on the CPU."""
+    return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
+                      weights_only=True)
+
+
+def copy_checkpoint(src: str, dst: str) -> None:
+    """Crash-safe copy: build next to ``dst``, then swap by renames, so a
+    complete tree is at ``dst`` at every moment (at worst a stale ``.old``
+    or ``.tmp`` sibling, which the next copy clears)."""
+    src, dst = os.path.abspath(src), os.path.abspath(dst)
+    tmp, old = dst + ".tmp", dst + ".old"
+    for stale in (tmp, old):
+        if os.path.exists(stale):
+            shutil.rmtree(stale)
+    shutil.copytree(src, tmp)
+    if os.path.exists(dst):
+        os.rename(dst, old)
+    os.rename(tmp, dst)
+    if os.path.exists(old):
+        shutil.rmtree(old)
+
+
+def find_latest_checkpoint(samples_dir: str, prefix: str = "g_epoch_") -> str:
+    """The newest ``<prefix>N`` checkpoint directory under ``samples_dir``
+    ('' if none): the trainers' ``--resume auto``."""
+    if not os.path.isdir(samples_dir):
+        return ""
+    best, best_n = "", -1
+    for name in os.listdir(samples_dir):
+        if name.startswith(prefix):
+            try:
+                n = int(name[len(prefix):])
+            except ValueError:
+                continue
+            if n > best_n and os.path.isdir(os.path.join(samples_dir, name)):
+                best, best_n = os.path.join(samples_dir, name), n
+    return best
+
+
+def merge_matching(params: Dict[str, Any], loaded: Dict[str, Any]) -> Dict[str, Any]:
+    """Filtered merge: a value of ``loaded`` replaces the one of ``params``
+    under the same name only where the shapes match (the reference's
+    partial loading); everything else keeps ``params``' value."""
+    out = {}
+    for k, v in params.items():
+        src = loaded.get(k) if isinstance(loaded, dict) else None
+        out[k] = src if src is not None and tuple(src.shape) == tuple(v.shape) else v
+    return out
+
+
+def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
+    """Generator weights as the port's OIHW state_dict, from
+
+    * a compact ``.npz`` snapshot (``scripts/snapshot_weights.py``),
     * a reference ``.pth.tar``: ``ema_state_dict`` when present and
-      preferred, else ``state_dict``, with the ``model.`` prefix stripped.
+      preferred, else ``state_dict``, with the ``model.`` prefix stripped, or
+    * a checkpoint directory of the port's trainer: ``ema_params`` when
+      preferred, else ``params``.
 
     A ``.pth.tar`` is unpickled with ``weights_only=True``: tensors, plain
     containers and numbers, and numpy scalars and arrays (the reference
@@ -68,6 +159,10 @@ def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch
             ckpt = ckpt[key]
         return {k: torch.as_tensor(v, dtype=torch.float32)
                 for k, v in strip_prefix(ckpt).items()}
+    if os.path.isdir(path) and is_checkpoint_dir(path):
+        tree = load_checkpoint(path)
+        params = tree["ema_params"] if prefer_ema and tree.get("ema_params") else tree["params"]
+        return {k: v.float() for k, v in params.items()}
     if os.path.isdir(path):
         raise ValueError(
             f"{path} looks like an Orbax checkpoint directory, which needs JAX to "

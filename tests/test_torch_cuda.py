@@ -587,3 +587,80 @@ def test_make_degraded_eval_runs_on_cuda_and_raises_without_it(tmp_path):
     names = sorted(os.listdir(tmp_path / "out" / "LRx4"))
     assert names == ["a_000.png", "a_001.png"]
     assert read_png(str(tmp_path / "out" / "LRx4" / names[0])).shape == (8, 8, 3)
+
+
+def test_make_degraded_eval_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """The eval set does not depend on the device: --seed 0 on the card and
+    with --cpu write identical HR files and at least 99% equal 8-bit LR
+    values (the card equals the CPU on the same draws; 1% leaves room for a
+    rounding that lands the other way and nothing else)."""
+    import numpy as np
+
+    from real_esrgan_tpu_torch.scripts import make_degraded_eval
+    from real_esrgan_tpu_torch.utils.imgio import read_png, save_image_rgb
+
+    gt = tmp_path / "gt"
+    gt.mkdir()
+    save_image_rgb(str(gt / "a.png"), np.random.default_rng(1).random((320, 480, 3)))
+    args = ["--gt-dir", str(gt), "--seed", "0", "--hr-size", "160", "--crop-size", "128",
+            "--batch-size", "4"]
+    make_degraded_eval.main(args + ["--output-dir", str(tmp_path / "card")])
+    make_degraded_eval.main(args + ["--output-dir", str(tmp_path / "cpu"), "--cpu"])
+    names = sorted(os.listdir(tmp_path / "card" / "GTmod4"))
+    assert len(names) == 6 and names == sorted(os.listdir(tmp_path / "cpu" / "GTmod4"))
+    equal, total = 0, 0
+    for name in names:
+        assert (tmp_path / "card" / "GTmod4" / name).read_bytes() == \
+            (tmp_path / "cpu" / "GTmod4" / name).read_bytes()
+        a = read_png(str(tmp_path / "card" / "LRx4" / name))
+        b = read_png(str(tmp_path / "cpu" / "LRx4" / name))
+        equal, total = equal + int((a == b).sum()), total + a.size
+    assert equal / total >= 0.99, equal / total
+
+
+def test_one_bf16_training_step_on_the_card_launches_no_rdb_kernel(cuda):
+    """A full step (degradation, bf16 forward and backward with remat, the
+    guarded Adam step) at 64 channels: finite loss, and the training forward
+    never reaches the RDB kernel, which has no backward."""
+    from real_esrgan_tpu_torch.configuration import (
+        DegradationConfig, KernelSynthesisConfig, ModelConfig, PipelineGeometry, TrainConfig,
+    )
+    from real_esrgan_tpu_torch.train import esrnet
+
+    cfg = TrainConfig(use_bfloat16=True, remat_rrdb=True)
+    model = esrnet.build_generator(ModelConfig(num_rrdb=2), cfg, cuda)
+    opt = esrnet.build_optimizer(cfg, 10)
+    step = esrnet.make_train_step(model, opt, PipelineGeometry(160, 128, 4),
+                                  KernelSynthesisConfig(), DegradationConfig(), cfg.ema_decay)
+    state = esrnet.init_state(model, opt)
+    hr = (torch.rand(2, 160, 160, 3, device=cuda) * 255).to(torch.uint8)
+    before = fused_rdb.launches
+    state, metrics = step(state, hr, True, True)
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before
+    assert bool(torch.isfinite(metrics["loss"])) and float(metrics["rejected"]) == 0.0
+    assert state.step == 1 and int(state.opt_state.count) == 1
+
+
+def test_validation_on_the_card_launches_the_rdb_kernel_69_times_an_image(cuda):
+    """The trainer's validation pass, in bf16 under no_grad on the full-depth
+    evaluation model, with the committed trained weights as the EMA: 69 RDB
+    kernel launches an image, and a finite NIQE."""
+    import numpy as np
+
+    from real_esrgan_tpu_torch.configuration import ModelConfig, TrainConfig
+    from real_esrgan_tpu_torch.metrics.niqe import NIQE
+    from real_esrgan_tpu_torch.train import esrnet
+    from real_esrgan_tpu_torch.train_realesrnet import validate
+
+    ema = {k: v.to(cuda) for k, v in load_generator_params(
+        os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz")).items()}
+    eval_model = esrnet.build_generator(ModelConfig(), TrainConfig(), cuda, training=False)
+    rng = np.random.default_rng(0)
+    images = [{"lr": rng.random((64, 64, 3)).astype(np.float32)},
+              {"lr": rng.random((50, 70, 3)).astype(np.float32)}]
+    before = fused_rdb.launches
+    score = validate(esrnet.make_eval_fn(eval_model), ema, images,
+                     NIQE(crop_border=4, device=cuda), "Valid", 0, cuda)
+    assert fused_rdb.launches - before == 69 * len(images)
+    assert math.isfinite(score)

@@ -113,3 +113,32 @@ def test_no_tiles_is_an_error(tmp_path):
     save_image_rgb(str(gt / "tiny.png"), np.zeros((16, 16, 3), np.float32))
     with pytest.raises(SystemExit, match="no tiles"):
         make_degraded_eval.main(["--gt-dir", str(gt), "--output-dir", str(tmp_path / "o"), *ARGS])
+
+
+def test_a_batchs_draws_depend_only_on_seed_and_start():
+    """The draws of the batch at ``start`` come from (seed, start) alone:
+    drawn on their own they equal those drawn after batch 0, and another
+    start or seed draws otherwise.  They are CPU tensors, which the CLI
+    moves to its device, so the set is the same on every device."""
+    from real_esrgan_tpu_torch.configuration import (
+        DegradationConfig, KernelSynthesisConfig, PipelineGeometry,
+    )
+    from real_esrgan_tpu_torch.ops.degradation import draws_to_arrays
+
+    geo, kcfg, dcfg = PipelineGeometry(64, 32, 4), KernelSynthesisConfig(), DegradationConfig()
+
+    def draw(seed, start, up1=True, up2=False):
+        return draws_to_arrays(make_degraded_eval.draw_eval_batch(seed, start, 4, geo, kcfg,
+                                                                  dcfg, up1, up2))
+    make_degraded_eval.draw_eval_batch(3, 0, 4, geo, kcfg, dcfg, False, True)  # batch 0 first
+    after = draw(3, 8)
+    alone = draw(3, 8)
+    assert after.keys() == alone.keys() and "noise1.normal" in after
+    assert "orientation.0" not in after  # no augmentation: pairs keep the GT orientation
+    for key in after:
+        assert np.array_equal(after[key], alone[key]), key
+    for other in (draw(3, 0), draw(4, 8)):
+        assert not np.array_equal(other["noise1.normal"], after["noise1.normal"])
+    assert make_degraded_eval.draw_eval_batch(3, 8, 4, geo, kcfg, dcfg, True,
+                                              False).quality1.device.type == "cpu"
+

@@ -40,5 +40,7 @@ def test_port_and_chip_smoke_import_no_jax():
                    "test", "scripts.eval_pair", "tools.conv_exp", "tools.rdb_probe",
                    "configuration", "ops.color", "ops.filter2d", "ops.usm", "ops.diffjpeg",
                    "ops.augment", "ops.blur_kernels", "ops.noise", "ops.degradation",
-                   "ops.host", "scripts.make_degraded_eval"):
+                   "ops.host", "scripts.make_degraded_eval", "config", "models.ema",
+                   "train.schedule", "train.optim", "train.guard", "train.esrnet",
+                   "data.dataset", "data.prefetcher", "train_realesrnet"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

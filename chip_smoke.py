@@ -73,7 +73,21 @@
    degradation, the forward and backward and the guarded update, profiles
    one step, and holds one f32 update at 2 RRDBs on the card against the
    CPU (loss and grad norm within 1e-4 relative, TF32 off);
-10. times each kernel against its plain version, its bound and, where one
+10. drives the stage-2 trainer, ``python -m
+   real_esrgan_tpu_torch.train_realesrgan``, in-process the same way, D at
+   64 channels, warm-started from the committed ESRNet weights with the
+   frozen-trunk content backbone: ``--epochs 1``, then ``--epochs 2
+   --resume-g auto --resume-d auto`` (resumed at epoch 1; ``AsyncSaver``
+   writes g_epoch_1 and d_epoch_1, which load back); the RDB kernel launches
+   no time in the G+D steps and 69 times an image in validation; serves
+   g_last's EMA as an ``.npz`` snapshot against the checkpoint itself (PSNR
+   >= 40 dB); times GAN images/s with the random VGG19 backbone over 8 steps
+   after 3 with the peak memory, splits one step into the degradation, G's
+   forward and backward and update, D's forward and backward and update,
+   profiles one step, and holds one f32 G+D update at 2 RRDBs on the card
+   against the CPU (loss terms, grad norms and D's sigmas within 1e-4
+   relative, TF32 off);
+11. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
@@ -203,6 +217,12 @@ TRAIN_BATCH, TRAIN_CROPS, TRAIN_STRIDE = 48, 96, 64
 TRAIN_VALID_CORNERS = ((0, 0), (400, 900), (700, 1700))
 TRAIN_WARMUP, TRAIN_TIMED = 3, 8
 TRAIN_CARD_CPU_REL = 1e-4
+# the stage-2 trainer: the same data and batch; GAN imgs/s over 8 steps after
+# 3; card against CPU on one f32 G+D update at 2 RRDBs; the .npz snapshot of
+# g_last's EMA served against the checkpoint itself (f16 weights)
+GAN_WARMUP, GAN_TIMED = 3, 8
+GAN_CARD_CPU_REL = 1e-4
+NPZ_PSNR_DB = 40.0
 
 
 def check(ok: bool, what: str) -> None:
@@ -1043,6 +1063,18 @@ def train_crops(tree_sr: np.ndarray) -> list:
     return [tree_sr[y:y + size, x:x + size] for y, x in corners[:TRAIN_CROPS]]
 
 
+def write_train_data(tmp: str, tree_sr: np.ndarray):
+    """The trainers' data under ``tmp``: TRAIN_CROPS crops of 400 in
+    ``train/`` and the TRAIN_VALID_CORNERS crops of 300 in ``valid/``."""
+    train_dir, valid_dir = os.path.join(tmp, "train"), os.path.join(tmp, "valid")
+    os.makedirs(train_dir), os.makedirs(valid_dir)
+    for i, crop in enumerate(train_crops(tree_sr)):
+        write_png(os.path.join(train_dir, f"crop_{i:03d}.png"), crop)
+    for i, (y, x) in enumerate(TRAIN_VALID_CORNERS):
+        write_png(os.path.join(valid_dir, f"valid_{i}.png"), tree_sr[y:y + 300, x:x + 300])
+    return train_dir, valid_dir
+
+
 def drive_train_cli(tree_sr: np.ndarray) -> int:
     """The trainer's CLI in-process at full width (23 RRDBs, 64 channels,
     growth 32), batch 48, hr 400 -> crop 256, bf16, remat, on 96 crops of the
@@ -1065,12 +1097,7 @@ def drive_train_cli(tree_sr: np.ndarray) -> int:
     cwd = os.getcwd()
     runs = []
     with tempfile.TemporaryDirectory() as tmp:
-        train_dir, valid_dir = os.path.join(tmp, "train"), os.path.join(tmp, "valid")
-        os.makedirs(train_dir), os.makedirs(valid_dir)
-        for i, crop in enumerate(train_crops(tree_sr)):
-            write_png(os.path.join(train_dir, f"crop_{i:03d}.png"), crop)
-        for i, (y, x) in enumerate(TRAIN_VALID_CORNERS):
-            write_png(os.path.join(valid_dir, f"valid_{i}.png"), tree_sr[y:y + 300, x:x + 300])
+        train_dir, valid_dir = write_train_data(tmp, tree_sr)
         trainer.validate = counted
         os.chdir(tmp)
         try:
@@ -1237,6 +1264,273 @@ def drive_train(tree_sr: np.ndarray, gpu: str) -> int:
     return launches
 
 
+GAN_METRICS = ("pixel", "content", "adversarial", "g_loss", "d_loss", "d_hr_prob", "d_sr_prob",
+               "g_grad_norm", "d_grad_norm", "g_rejected", "d_rejected")
+
+
+def drive_gan_cli(tree_sr: np.ndarray, gpu: str) -> dict:
+    """The stage-2 CLI in-process at full width (23 RRDBs, 64 channels,
+    growth 32, D at 64), batch 48, hr 400 -> crop 256, bf16, remat, on the
+    trainer's 96 crops and 3 validation images, warm-started from the
+    committed ESRNet weights with the trunk content backbone: --epochs 1,
+    then --epochs 2 --resume-g auto --resume-d auto.  fused_rdb's launches
+    are counted apart for validation (69 an image) and training (none); every
+    step's metrics are read.  The async saver must write g_epoch_1 and
+    d_epoch_1, which load back; then ``check_npz_snapshot`` on g_last.
+    Returns fused_rdb's launches: validation and the snapshot's serving."""
+    from real_esrgan_tpu_torch import train_realesrgan as trainer
+    from real_esrgan_tpu_torch.train import checkpoint as ckpt_lib
+
+    validations, steps, saved, resumed = [], [], [], []
+    validate, make_step = trainer.validate, trainer.make_gan_train_step
+    resume_generator, save_many = trainer.resume_generator, ckpt_lib.AsyncSaver.save_many
+
+    def counted(*args, **kwargs):
+        before = fused_rdb.launches
+        score = validate(*args, **kwargs)
+        validations.append((fused_rdb.launches - before, len(args[2]), score))
+        return score
+
+    def recording(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def run(*a, **k):
+            state, metrics = step(*a, **k)
+            steps.append({k: float(metrics[k]) for k in GAN_METRICS})
+            return state, metrics
+        return run
+
+    def resume(*args, **kwargs):
+        out = resume_generator(*args, **kwargs)
+        resumed.append(out[1])
+        return out
+
+    def spy_save(self, items):
+        saved.append([os.path.basename(path) for path, _, _ in items])
+        return save_many(self, items)
+
+    cwd = os.getcwd()
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, valid_dir = write_train_data(tmp, tree_sr)
+        trainer.validate, trainer.make_gan_train_step = counted, recording
+        trainer.resume_generator, ckpt_lib.AsyncSaver.save_many = resume, spy_save
+        os.chdir(tmp)
+        try:
+            for epochs, resume_args in ((1, []), (2, ["--resume-g", "auto", "--resume-d", "auto"])):
+                args = trainer.build_parser().parse_args(
+                    ["--train-dir", train_dir, "--valid-dir", valid_dir,
+                     "--test-lr-dir", os.path.join(tmp, "none"),
+                     "--test-hr-dir", os.path.join(tmp, "none"), "--batch-size",
+                     str(TRAIN_BATCH), "--epochs", str(epochs), "--exp-name", "chip_smoke_gan",
+                     "--resume", WEIGHTS, "--content-backbone", "trunk", "--no-tensorboard",
+                     *resume_args])
+                fused_rdb.launches, seen, first = 0, len(validations), len(steps)
+                t0 = time.perf_counter()
+                trainer.main(args)
+                seconds = time.perf_counter() - t0
+                launched = validations[seen:]
+                validation = sum(n for n, _, _ in launched)
+                runs.append({"epochs": epochs, "resume": bool(resume_args), "seconds": seconds,
+                             "resumed_epoch": resumed[-1] if resume_args else None,
+                             "fused_rdb_launches_training": fused_rdb.launches - validation,
+                             "fused_rdb_launches_validation": validation,
+                             "validated_images": sum(k for _, k, _ in launched),
+                             "valid_niqe": [score for _, _, score in launched],
+                             "steps": steps[first:]})
+            results = os.path.join(tmp, "results", "chip_smoke_gan")
+            epoch_1 = {kind: ckpt_lib.load_checkpoint(
+                os.path.join(tmp, "samples", "chip_smoke_gan", f"{kind}_epoch_1"))
+                for kind in ("g", "d")}
+            g_last = ckpt_lib.load_checkpoint(os.path.join(results, "g_last"))
+            d_last = ckpt_lib.load_checkpoint(os.path.join(results, "d_last"))
+        finally:
+            os.chdir(cwd)
+            trainer.validate, trainer.make_gan_train_step = validate, make_step
+            trainer.resume_generator, ckpt_lib.AsyncSaver.save_many = resume_generator, save_many
+        fused_rdb.launches = 0
+        check_npz_snapshot(os.path.join(results, "g_last"), gpu)
+        snapshot_launches = fused_rdb.launches
+    steps_per_epoch = TRAIN_CROPS // TRAIN_BATCH
+    finite = all(bool(torch.isfinite(v).all()) for tree in (g_last, d_last)
+                 for v in tree["params"].values())
+    emit(gan_cli={"card": gpu, "model": "23 RRDBs, 64 channels, growth 32, bf16, remat; "
+                  "D 64 channels; trunk content backbone (taps 0, 1, 2)",
+                  "warm_start": os.path.relpath(WEIGHTS, ROOT), "batch": TRAIN_BATCH,
+                  "geometry": "hr 400 -> crop 256, x4", "train_crops": TRAIN_CROPS,
+                  "steps_per_epoch": steps_per_epoch, "async_saves": saved,
+                  "epoch_1_loaded": {k: sorted(v) for k, v in epoch_1.items()},
+                  "g_last": {"step": g_last["step"], "epoch": g_last["epoch"],
+                             "update_count": int(g_last["opt_state"]["count"]),
+                             "rejected_total": int(g_last["guard"]["rejected_total"])},
+                  "d_last": {"epoch": d_last["epoch"],
+                             "update_count": int(d_last["opt_state"]["count"]),
+                             "rejected_total": int(d_last["guard"]["rejected_total"])},
+                  "params_finite": finite, "runs": runs})
+    check(saved == [["g_epoch_1", "d_epoch_1"], ["g_epoch_2", "d_epoch_2"]],
+          f"the async saver wrote {saved}")
+    check(epoch_1["g"]["epoch"] == epoch_1["d"]["epoch"] == 1
+          and epoch_1["g"]["step"] == steps_per_epoch
+          and set(epoch_1["d"]["batch_stats"]) and set(epoch_1["g"]["ema_params"]),
+          "g_epoch_1 / d_epoch_1 did not load back as written")
+    check(g_last["step"] == 2 * steps_per_epoch and g_last["epoch"] == d_last["epoch"] == 2,
+          f"GAN checkpoint at step {g_last['step']}, epoch {g_last['epoch']}")
+    check(runs[1]["resumed_epoch"] == 1, f"the GAN CLI resumed at {runs[1]['resumed_epoch']}")
+    check(finite, "a GAN checkpoint holds non-finite parameters")
+    for run in runs:
+        check(len(run["steps"]) == steps_per_epoch, f"{len(run['steps'])} GAN steps in a run")
+        check(all(math.isfinite(v) for step in run["steps"] for v in step.values()),
+              "a GAN step gave a non-finite metric")
+        check(run["fused_rdb_launches_training"] == 0,
+              f"the GAN steps launched fused_rdb {run['fused_rdb_launches_training']} times")
+        expected = RDBS_PER_FORWARD * run["validated_images"]
+        check(run["validated_images"] == len(TRAIN_VALID_CORNERS)
+              and run["fused_rdb_launches_validation"] == expected,
+              f"GAN validation launched fused_rdb {run['fused_rdb_launches_validation']} times "
+              f"for {run['validated_images']} images")
+        check(all(math.isfinite(score) for score in run["valid_niqe"]), "GAN validation NIQE")
+    return {"gan_validation": sum(run["fused_rdb_launches_validation"] for run in runs),
+            "npz_snapshot": snapshot_launches}
+
+
+def check_npz_snapshot(checkpoint: str, gpu: str) -> None:
+    """``save_params_npz`` of the checkpoint's EMA, read back through
+    ``load_generator_params`` and served on the tree image in bf16, against
+    serving the checkpoint itself: PSNR >= NPZ_PSNR_DB (f16 storage)."""
+    from real_esrgan_tpu_torch.train.checkpoint import save_params_npz
+
+    tree = read_png(TREE).astype(np.float32) / 255.0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "g_last_ema.npz")
+        save_params_npz(path, load_generator_params(checkpoint))
+        size = os.path.getsize(path)
+        outs = [SRPipeline(weights, bfloat16=True, device="cuda").upscale(tree)
+                for weights in (checkpoint, path)]
+    score = psnr(outs[1], outs[0])
+    emit(npz_snapshot={"card": gpu, "bytes": size, "psnr_db": score, "floor_db": NPZ_PSNR_DB,
+                       "finite": bool(np.isfinite(outs[1]).all()), "shape": list(outs[1].shape)})
+    check(bool(np.isfinite(outs[1]).all()) and score >= NPZ_PSNR_DB,
+          f"the .npz snapshot serves at {score:.2f} dB against its checkpoint")
+
+
+def time_gan(gpu: str) -> None:
+    """GAN images/s at batch 48, full width, bf16, remat, D at 64 and the
+    random VGG19 backbone (the reference's default loss): GAN_TIMED steps of
+    make_gan_train_step between two CUDA events after GAN_WARMUP, on
+    SyntheticHRDataset batches with the trainer's coins; the peak memory; one
+    step split by CUDA events into the degradation, G's forward and
+    backward, G's update, D's forward and backward and D's update; one step
+    under torch.profiler."""
+    from real_esrgan_tpu_torch.configuration import GanTrainConfig, ModelConfig
+    from real_esrgan_tpu_torch.train import esrgan
+    from real_esrgan_tpu_torch.train_realesrnet import SyntheticHRDataset
+
+    cfg = GanTrainConfig()
+    generator, discriminator, vgg = esrgan.build_models(ModelConfig(), cfg, "cuda")
+    g_tx, d_tx = esrgan.build_optimizers(cfg, 1000)
+    step = esrgan.make_gan_train_step(generator, discriminator, vgg, g_tx, d_tx, DEGRADE_GEO,
+                                      degrade_cfg.KernelSynthesisConfig(),
+                                      degrade_cfg.DegradationConfig(), cfg)
+    state = esrgan.init_gan_state(generator, discriminator, g_tx, d_tx)
+    data = SyntheticHRDataset(DEGRADE_GEO.hr_size, length=2 * TRAIN_BATCH, seed=0)
+    batches = [torch.from_numpy(np.stack([data.load(b * TRAIN_BATCH + i, None)
+                                          for i in range(TRAIN_BATCH)])).cuda() for b in range(2)]
+    coins = np.random.default_rng((0, 0, 17))
+    dcfg = degrade_cfg.DegradationConfig()
+    flags = [(bool(coins.random() < dcfg.resize_probs1[0]),
+              bool(coins.random() < dcfg.resize_probs2[0]))
+             for _ in range(GAN_WARMUP + GAN_TIMED)]
+    before = fused_rdb.launches
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(GAN_WARMUP):
+        state, metrics = step(state, batches[i % 2], *flags[i])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(GAN_WARMUP, GAN_WARMUP + GAN_TIMED):
+        state, metrics = step(state, batches[i % 2], *flags[i])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / GAN_TIMED
+    values = {k: float(metrics[k]) for k in GAN_METRICS}
+    check(all(math.isfinite(v) for v in values.values()), f"a timed GAN step gave {values}")
+    check(fused_rdb.launches == before, "a GAN step launched fused_rdb")
+    emit(gan_time={"card": gpu, "batch": TRAIN_BATCH, "backbone": "VGG19 to conv5_4, random",
+                   "steps_timed": GAN_TIMED, "warmup_steps": GAN_WARMUP,
+                   "up_flags": flags[GAN_WARMUP:], "ms_per_step": ms,
+                   "images_per_second": TRAIN_BATCH / ms * 1e3,
+                   "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "last_step": values, "g_rejected_total": int(state.g_guard.rejected_total),
+                   "d_rejected_total": int(state.d_guard.rejected_total)})
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+    events[0].record()
+    lr, hr = step.degrade_batch(state, batches[0], True, True)
+    events[1].record()
+    g_grads, aux = step.g_loss_and_grads(state, lr, hr)
+    events[2].record()
+    step.g_apply(state, g_grads)
+    events[3].record()
+    d_grads, _ = step.d_loss_and_grads(state.d_params, aux["d_stats"], aux["sr"], hr)
+    events[4].record()
+    step.d_apply(state, d_grads)
+    events[5].record()
+    torch.cuda.synchronize()
+    split = {name: events[i].elapsed_time(events[i + 1]) for i, name in enumerate(
+        ("degradation", "g_forward_backward", "g_update", "d_forward_backward", "d_update"))}
+    profile = profile_device(lambda: step(state, batches[0], True, True))
+    by_name = profile.pop("by_name", {})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    emit(gan_profile={"card": gpu, "batch": TRAIN_BATCH, "up1": True, "up2": True,
+                      "event_split_ms": split, **profile,
+                      "kernel_launches": sum(n for _, n in by_name.values()),
+                      "top6": [[name[:80], ms, n] for name, (ms, n) in top]})
+
+
+def check_gan_card_vs_cpu() -> None:
+    """One f32 G+D update with the degradation bypassed, G at 2 RRDBs (64
+    channels, growth 32), D at 64 channels, the random VGG19 backbone to
+    conv5_4, TF32 off, on the same weights (drawn on the CPU) and batch (2
+    LR crops of 32) on the card and on the CPU: every loss term, both grad
+    norms and D's sigmas within GAN_CARD_CPU_REL relative."""
+    from real_esrgan_tpu_torch.configuration import GanTrainConfig, ModelConfig
+    from real_esrgan_tpu_torch.train import esrgan
+
+    check(not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on for the card-against-CPU GAN update")
+    cfg = GanTrainConfig(use_bfloat16=False, remat_rrdb=False, seed=5)
+    rng = np.random.default_rng(6)
+    lr = torch.from_numpy(rng.random((2, 32, 32, 3)).astype(np.float32))
+    hr = torch.from_numpy(rng.random((2, 128, 128, 3)).astype(np.float32))
+    results = {}
+    for device in ("cpu", "cuda"):
+        generator, discriminator, vgg = esrgan.build_models(ModelConfig(num_rrdb=2), cfg, device)
+        g_tx, d_tx = esrgan.build_optimizers(cfg, 10)
+        step = esrgan.make_gan_train_step(generator, discriminator, vgg, g_tx, d_tx, None, None,
+                                          degrade_cfg.DegradationConfig(), cfg)
+        state, metrics = step.update(esrgan.init_gan_state(generator, discriminator, g_tx, d_tx),
+                                     lr.to(device), hr.to(device))
+        results[device] = ({k: float(metrics[k]) for k in GAN_METRICS[:9]},
+                           {k: float(v) for k, v in state.d_stats.items() if k.endswith("sigma")})
+    (m_cpu, s_cpu), (m, s) = results["cpu"], results["cuda"]
+    rel = {k: abs(m[k] - m_cpu[k]) / abs(m_cpu[k]) for k in m}
+    rel.update({k: abs(s[k] - s_cpu[k]) / abs(s_cpu[k]) for k in s})
+    emit(gan_card_vs_cpu={"rrdbs": 2, "d_channels": 64, "backbone": "VGG19 to conv5_4",
+                          "dtype": "f32", "tf32": False, "card": m, "cpu": m_cpu,
+                          "sigma_card": s, "sigma_cpu": s_cpu, "rel": rel,
+                          "worst_rel": max(rel.values()), "bound_rel": GAN_CARD_CPU_REL})
+    check(max(rel.values()) <= GAN_CARD_CPU_REL,
+          f"the GAN update on the card is off from the CPU by {max(rel.values())}")
+
+
+def drive_gan(tree_sr: np.ndarray, gpu: str) -> dict:
+    """The stage-2 phase; returns fused_rdb's launches on its paths."""
+    launches = drive_gan_cli(tree_sr, gpu)
+    time_gan(gpu)
+    check_gan_card_vs_cpu()
+    return launches
+
+
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
@@ -1362,6 +1656,7 @@ def main() -> int:
     tree_sr = read_png(TREE_SR)
     drive_degrade(tree_sr)
     train_launches = drive_train(tree_sr, gpu)
+    gan_launches = drive_gan(tree_sr, gpu)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)
@@ -1371,11 +1666,13 @@ def main() -> int:
     check(f32_err <= 1e-4, f"f32 crop differs from the JAX golden output by {f32_err}")
     check(bf16_psnr >= 40.0, f"bf16 crop PSNR {bf16_psnr:.2f} dB against the JAX golden output")
 
-    train_launches = {torch.bfloat16: train_launches, torch.float32: 0}
+    trainers = {torch.bfloat16: {"train_validation": train_launches, **gan_launches},
+                torch.float32: {"train_validation": 0, "gan_validation": 0, "npz_snapshot": 0}}
     emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],
-                                             "train_validation": train_launches[d]}
+                                             **trainers[d]}
                              for d in launches})
-    kernels = [kernel_record(state_dict, d, launches[d] + eval_launches[d] + train_launches[d])
+    kernels = [kernel_record(state_dict, d, launches[d] + eval_launches[d]
+                             + sum(trainers[d].values()))
                for d in (torch.bfloat16, torch.float32)]
     kernels.append(conv_record(tool_launches["conv3x3"]))
     kernels += [mm_record(kind, m, k, n, tool_launches[kind])

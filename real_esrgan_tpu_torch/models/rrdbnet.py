@@ -18,12 +18,15 @@ For training, ``Generator(plain_rdb=True)`` runs each RDB as ``rdb_plain``
 no backward), ``remat=True`` recomputes each RRDB in the backward pass
 (``torch.utils.checkpoint``, the counterpart of flax's ``nn.remat``), and
 ``clamp``/``st_clamp`` choose the output the loss sees.
+
+``TrunkFeatures`` taps the early trunk of a (frozen, trained) generator as
+the stage-2 content loss's feature space where no VGG19 weights exist.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -80,6 +83,22 @@ def pixel_unshuffle(x: torch.Tensor, factor: int) -> torch.Tensor:
     r = factor
     x = x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 5, 2, 4)
     return x.reshape(b, h // r, w // r, c * r * r)
+
+
+@torch.no_grad()
+def init_generator_convs(model: nn.Module, generator: torch.Generator) -> None:
+    """JAX init: RDB convs kaiming_normal * 0.1 with zero bias; every other
+    conv PyTorch's default uniform init."""
+    for name, conv in model.named_modules():
+        if not isinstance(conv, Conv3x3):
+            continue
+        shape = conv.weight.shape
+        if ".rdb" in name:
+            conv.weight.copy_(rdb_kernel_init(shape, generator))
+            conv.bias.zero_()
+        else:
+            conv.weight.copy_(torch_conv_kernel_init(shape, generator))
+            conv.bias.copy_(torch_conv_bias_init(conv.bias.shape, 9 * shape[1], generator))
 
 
 class Conv3x3(nn.Module):
@@ -224,6 +243,54 @@ class RRDB(nn.Module):
         return out * scalar_like(0.2, out) + x
 
 
+class TrunkFeatures(nn.Module):
+    """Perceptual feature taps of a frozen stage-1 generator trunk: the port
+    of the JAX ``TrunkFeatures``.
+
+    Tap 0 is the conv1 output, tap t >= 1 the output of RRDB t-1; the
+    parameter names are the generator's (``conv1``, ``trunk.{i}``), so
+    ``trunk_feature_params`` takes them from a generator state_dict.  The
+    input is NHWC in [0, 1], not ImageNet-normalized (``imagenet_input``);
+    at x4 the trunk runs at the input's resolution, so the taps stay
+    shallow.  The RRDBs run the plain packed math (``rdb_plain``): the
+    content loss needs gradients through them, and the RDB kernel has none.
+    ``forward`` returns the taps as float32 NCHW tensors."""
+
+    imagenet_input = False
+
+    def __init__(self, taps: Sequence[int] = (0, 1, 2), upscale_factor: int = 4,
+                 channels: int = 64, growth: int = 32, dtype: torch.dtype = torch.float32,
+                 in_channels: int = 3, device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.taps, self.dtype = tuple(taps), dtype
+        self.unshuffle = {1: 4, 2: 2}.get(upscale_factor, 1)
+        self.conv1 = Conv3x3(in_channels * self.unshuffle ** 2, channels, device)
+        self.trunk = nn.ModuleList(RRDB(channels, growth, True, device, plain=True)
+                                   for _ in range(max(self.taps)))
+        init_generator_convs(self, generator if generator is not None
+                             else torch.Generator().manual_seed(0))
+
+    def forward(self, x: torch.Tensor):
+        out = pixel_unshuffle(x, self.unshuffle).to(self.dtype)
+        out = self.conv1(out.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
+        feats = [out.float()] if 0 in self.taps else []
+        for i, rrdb in enumerate(self.trunk):
+            out = rrdb(out)
+            if i + 1 in self.taps:
+                feats.append(out.float())
+        return feats
+
+
+def trunk_feature_params(generator_params: Dict[str, torch.Tensor],
+                         taps: Sequence[int]) -> Dict[str, torch.Tensor]:
+    """The ``TrunkFeatures`` state_dict taken from a generator state_dict."""
+    prefixes = ["conv1."] + [f"trunk.{i}." for i in range(max(taps))]
+    missing = [p[:-1] for p in prefixes if not any(k.startswith(p) for k in generator_params)]
+    if missing:
+        raise KeyError(f"generator params lack trunk layers {missing}")
+    return {k: v for k, v in generator_params.items() if any(k.startswith(p) for p in prefixes)}
+
+
 class Generator(nn.Module):
     """Real-ESRGAN generator, NHWC in and out, values in [0, 1].
 
@@ -257,23 +324,8 @@ class Generator(nn.Module):
         self.upsampling2 = nn.Sequential(Conv3x3(channels, channels, device))
         self.conv3 = nn.Sequential(Conv3x3(channels, channels, device))
         self.conv4 = Conv3x3(channels, out_channels, device)
-        self.reset_parameters(generator if generator is not None
-                              else torch.Generator().manual_seed(0))
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """JAX init: RDB convs kaiming_normal * 0.1 with zero bias; every
-        other conv PyTorch's default uniform init."""
-        for name, conv in self.named_modules():
-            if not isinstance(conv, Conv3x3):
-                continue
-            shape = conv.weight.shape
-            if ".rdb" in name:
-                conv.weight.copy_(rdb_kernel_init(shape, generator))
-                conv.bias.zero_()
-            else:
-                conv.weight.copy_(torch_conv_kernel_init(shape, generator))
-                conv.bias.copy_(torch_conv_bias_init(conv.bias.shape, 9 * shape[1], generator))
+        init_generator_convs(self, generator if generator is not None
+                             else torch.Generator().manual_seed(0))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = pixel_unshuffle(x, self.unshuffle).to(self.dtype)

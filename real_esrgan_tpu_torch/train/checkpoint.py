@@ -20,12 +20,15 @@ from __future__ import annotations
 
 import os
 import shutil
-from typing import Any, Dict
+import threading
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from real_esrgan_tpu_torch.models.convert import state_dict_from_jax_params, strip_prefix
+from real_esrgan_tpu_torch.models.convert import (
+    convert_generator, state_dict_from_jax_params, strip_prefix,
+)
 
 
 def _load_params_npz(path: str) -> Dict[str, Any]:
@@ -77,6 +80,137 @@ def _to_cpu(obj):
     if isinstance(obj, dict):
         return {k: _to_cpu(v) for k, v in obj.items()}
     return obj
+
+
+def write_checkpoints(items: Sequence[tuple]) -> None:
+    """Synchronous saves: each ``(path, payload, copies)`` is written to
+    ``path``, then copied to every directory of ``copies``."""
+    for path, payload, copies in items:
+        save_checkpoint(path, payload)
+        for dst in copies:
+            copy_checkpoint(path, dst)
+
+
+def _snapshot(obj):
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().clone()
+    if isinstance(obj, dict):
+        return {k: _snapshot(v) for k, v in obj.items()}
+    return obj
+
+
+class AsyncSaver:
+    """Checkpoint writes off the training loop.
+
+    ``save_many`` clones every tensor of the payloads on the caller's stream
+    (device copies, cheap beside the files) before it returns, so a later
+    update of the live state, in place or not, cannot reach a save in
+    flight.  A thread then moves the clones to the CPU and runs
+    ``write_checkpoints``.  At most one save is in flight: a new save first
+    joins the last one, so checkpoints land in order.  A failure of the
+    thread is raised by the next ``save``, ``save_many`` or ``wait``; call
+    ``wait`` before the process exits, so the last checkpoint is durable."""
+
+    def __init__(self) -> None:
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+
+    def save(self, path: str, payload: Dict[str, Any], copies: Sequence[str] = ()) -> None:
+        self.save_many([(path, payload, copies)])
+
+    def save_many(self, items: Sequence[tuple]) -> None:
+        """``items``: ``(path, payload, copies)`` triples written as one unit
+        (the stage-2 trainer's ``g_`` and ``d_`` checkpoints)."""
+        self.wait()
+        snapped = [(path, _snapshot(payload), tuple(copies)) for path, payload, copies in items]
+        ready = None
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            ready = torch.cuda.Event()
+            ready.record()
+
+        def work() -> None:
+            try:
+                if ready is not None:
+                    ready.synchronize()
+                write_checkpoints(snapped)
+            except BaseException as exc:  # raised again by the next save or wait
+                self._error = exc
+
+        self._thread = threading.Thread(target=work, name="checkpoint-save", daemon=False)
+        self._thread.start()
+
+    def wait(self) -> None:
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            error, self._error = self._error, None
+            raise RuntimeError("async checkpoint save failed") from error
+
+
+def save_params_npz(path: str, state_dict: Dict[str, torch.Tensor], dtype=np.float16) -> None:
+    """Generator weights (the port's OIHW state_dict) as one compressed
+    ``.npz``: the JAX params tree of ``convert_generator`` under
+    ``/``-joined keys, in ``dtype`` (f16 by default, about 2 bytes a
+    parameter), the format the JAX ``load_generator_params`` reads."""
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(node, prefix):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, prefix + (k,))
+            else:
+                flat["/".join(prefix + (k,))] = np.asarray(v, dtype)
+
+    walk(convert_generator({k: v.detach().cpu().float() for k, v in state_dict.items()}), ())
+    np.savez_compressed(path, **flat)
+
+
+def _mismatch(template, restored, where: str) -> Optional[str]:
+    if isinstance(template, dict):
+        if not isinstance(restored, dict):
+            return f"{where} is {type(restored).__name__} in the checkpoint"
+        if set(template) != set(restored):
+            extra, missing = sorted(set(restored) - set(template)), \
+                sorted(set(template) - set(restored))
+            return f"{where}: {len(missing)} names missing ({missing[:3]}), " \
+                f"{len(extra)} extra ({extra[:3]})"
+        for k in template:
+            found = _mismatch(template[k], restored[k], f"{where}/{k}")
+            if found:
+                return found
+        return None
+    if not isinstance(restored, torch.Tensor):
+        return f"{where} is {type(restored).__name__} in the checkpoint"
+    if tuple(restored.shape) != tuple(template.shape):
+        return f"{where}: shape {tuple(restored.shape)} in the checkpoint, " \
+            f"{tuple(template.shape)} live"
+    return None
+
+
+def _restore(template, restored):
+    if isinstance(template, dict):
+        return {k: _restore(v, restored[k]) for k, v in template.items()}
+    return restored.to(device=template.device, dtype=template.dtype)
+
+
+def restore_like(template: Any, restored: Any, what: str = "state",
+                 on_mismatch: str = "raise") -> Any:
+    """``restored`` (nested dicts of tensors, as a checkpoint holds them) in
+    ``template``'s structure, names' order, devices and dtypes.
+
+    Where the names or shapes differ (the model or optimizer changed between
+    runs) it raises, since training from a fresh state while claiming to
+    have resumed would be worse; with ``on_mismatch="template"`` it warns
+    and returns ``template``."""
+    mismatch = _mismatch(template, restored, what)
+    if mismatch is None:
+        return _restore(template, restored)
+    msg = f"Checkpoint {what} does not match the live structure ({mismatch})."
+    if on_mismatch == "raise":
+        raise ValueError(msg)
+    print(f"WARNING: {msg} Keeping freshly-initialized {what}.")
+    return template
 
 
 def is_checkpoint_dir(path: str) -> bool:

@@ -110,6 +110,19 @@ def init_state(model: Generator, opt: ClippedAdam) -> TrainState:
                       opt_state=opt.init(params), guard=guard_init(device))
 
 
+def degrade_for_step(step: int, hr_uint8: torch.Tensor, geo: PipelineGeometry,
+                     kcfg: KernelSynthesisConfig, dcfg: DegradationConfig, seed: int,
+                     up1: bool = False, up2: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training batch of step ``step``: ``degrade`` under ``no_grad``,
+    its draws made on ``hr_uint8``'s device from ``(seed + 1, step)``."""
+    s = generator_seed(seed + 1, step)
+    generator = torch.Generator(device=hr_uint8.device).manual_seed(s)
+    host = torch.Generator().manual_seed(s)
+    with torch.no_grad():
+        return degrade(generator, hr_uint8, geo, kcfg, dcfg, augment=True, up1=up1, up2=up2,
+                       host_generator=host)
+
+
 def make_train_step(model: Generator, opt: ClippedAdam, geo: PipelineGeometry,
                     kcfg: KernelSynthesisConfig, dcfg: DegradationConfig, ema_decay: float, *,
                     seed: int = 0, reject_limit: float = 500.0, rollback_after: int = 4,
@@ -128,12 +141,7 @@ def make_train_step(model: Generator, opt: ClippedAdam, geo: PipelineGeometry,
 
     def degrade_batch(state: TrainState, hr_uint8: torch.Tensor, up1: bool = False,
                       up2: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        s = generator_seed(seed + 1, state.step)
-        generator = torch.Generator(device=hr_uint8.device).manual_seed(s)
-        host = torch.Generator().manual_seed(s)
-        with torch.no_grad():
-            return degrade(generator, hr_uint8, geo, kcfg, dcfg, augment=True, up1=up1,
-                           up2=up2, host_generator=host)
+        return degrade_for_step(state.step, hr_uint8, geo, kcfg, dcfg, seed, up1, up2)
 
     def loss_and_grads(params: Tensors, lr_batch: torch.Tensor, hr_batch: torch.Tensor
                        ) -> Tuple[torch.Tensor, Tensors]:

@@ -40,6 +40,10 @@ class AdamState:
     mu: Tensors
     nu: Tensors
 
+    def as_dict(self) -> Dict[str, object]:
+        """The checkpoint's form: ``{"count", "mu", "nu"}``, no copies."""
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
     """sqrt(sum of squares) of every element, in float32, as a 0-d tensor.

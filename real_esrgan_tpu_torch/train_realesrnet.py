@@ -13,10 +13,13 @@ g_best`` and ``g_last`` copies, and ``--resume auto`` from the newest one.
 The values come from ``real_esrgan_tpu_torch.config``; the flags are the
 root script's, plus ``--cpu``.  Without CUDA and without ``--cpu`` it raises.
 
-Checkpoints are saved synchronously, at the end of a saving epoch.  Both
-TF32 flags are turned off, so ``use_bfloat16=False`` trains in float32.
-The loader is the Python ``ThreadedLoader`` (``--loader auto`` and
-``threads``); ``device`` and ``grain`` are not ported yet and raise.
+A saving epoch's checkpoint is written by ``AsyncSaver`` while the next
+epoch trains (synchronously where ``async_checkpoint`` is off), then the
+host-memory failsafe runs: past 80% of the machine's RAM the run exits
+rc=4, for a fresh process to resume.  Both TF32 flags are turned off, so
+``use_bfloat16=False`` trains in float32.  The loader is the Python
+``ThreadedLoader`` (``--loader auto`` and ``threads``); ``device`` and
+``grain`` are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from real_esrgan_tpu_torch.train.esrnet import (
 )
 from real_esrgan_tpu_torch.train.guard import guard_from_dict, guard_to_dict
 from real_esrgan_tpu_torch.train.optim import AdamState
+from real_esrgan_tpu_torch.utils import hostmem
 from real_esrgan_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
 LR_SCALE_FLOOR = 1.0 / 64.0
@@ -99,30 +103,18 @@ def validate(eval_fn, params, dataset, niqe_model, name: str, epoch: int, device
     return niqe_meter.avg
 
 
-def _restore_opt_state(template: AdamState, saved, device) -> AdamState:
+def restore_opt_state(template: AdamState, saved) -> AdamState:
     """The saved optimizer state where its names and shapes are the live
-    ones; otherwise a loud warning and the fresh state."""
-    try:
-        mu, nu = saved["mu"], saved["nu"]
-        if list(mu) == list(template.mu) and list(nu) == list(template.nu) and all(
-                mu[k].shape == template.mu[k].shape and nu[k].shape == template.nu[k].shape
-                for k in template.mu):
-            return AdamState(count=saved["count"].to(device=device, dtype=torch.int32),
-                             mu={k: v.to(device) for k, v in mu.items()},
-                             nu={k: v.to(device) for k, v in nu.items()})
-    except (KeyError, TypeError, AttributeError):
-        pass
-    print("WARNING: Checkpoint opt_state does not match the live structure. "
-          "Keeping freshly-initialized opt_state.")
-    return template
+    ones; otherwise a loud warning and ``template``, the fresh state."""
+    return AdamState(**ckpt_lib.restore_like(template.as_dict(), saved, "opt_state",
+                                             on_mismatch="template"))
 
 
 def checkpoint_payload(state: TrainState, epoch: int, best_niqe: float) -> dict:
     """The epoch checkpoint's payload (the JAX trainer's fields)."""
     return {"epoch": epoch, "best_niqe": best_niqe, "step": state.step,
             "params": state.params, "ema_params": state.ema_params,
-            "opt_state": {"count": state.opt_state.count, "mu": state.opt_state.mu,
-                          "nu": state.opt_state.nu},
+            "opt_state": state.opt_state.as_dict(),
             "guard": guard_to_dict(state.guard)}
 
 
@@ -134,7 +126,7 @@ def resume_state(state: TrainState, path: str, device):
         step=int(tree["step"]),
         params=to(ckpt_lib.merge_matching(state.params, tree["params"])),
         ema_params=to(ckpt_lib.merge_matching(state.ema_params, tree["ema_params"])),
-        opt_state=_restore_opt_state(state.opt_state, tree.get("opt_state"), device),
+        opt_state=restore_opt_state(state.opt_state, tree.get("opt_state")),
         guard=guard_from_dict(tree.get("guard"), device))
     return state, int(tree.get("epoch", 0)), float(tree.get("best_niqe", 100.0))
 
@@ -216,6 +208,7 @@ def main(args) -> None:
     # trailing-window rejection telemetry: a rollback storm turns into a loud
     # verdict, and --abort-on-storm exits rc=3
     storm_hist = deque(maxlen=32)
+    saver = ckpt_lib.AsyncSaver() if cfg.async_checkpoint else None
     for epoch in range(start_epoch, epochs):
         batch_time = AverageMeter("Time", "6.3f")
         data_time = AverageMeter("Data", "6.3f")
@@ -256,23 +249,8 @@ def main(args) -> None:
                           f"{rollback_count(state.guard)} EMA rollbacks total, lr_scale "
                           f"{lr_scale_now:.4f} — the guard is holding training on healthy "
                           "weights.", flush=True)
-                storm_hist.append((window_steps, rejected))
-                trail_steps = sum(s for s, _ in storm_hist)
-                trail_rej = sum(r for _, r in storm_hist)
-                if trail_steps >= 200 and trail_rej and (
-                        trail_rej / trail_steps > 0.10
-                        or (lr_scale_now <= LR_SCALE_FLOOR + 1e-9
-                            and trail_rej / trail_steps > 0.02)):
-                    print(f"STORM: training is NOT progressing — {trail_rej:.0f}/{trail_steps} "
-                          f"recent updates rejected ({100 * trail_rej / trail_steps:.1f}%), "
-                          f"lr_scale {lr_scale_now:.4f}. The guard is in a rollback storm; "
-                          "this run will not produce a usable model at the current settings.",
-                          flush=True)
-                    if args.abort_on_storm:
-                        print("Aborting (rc=3): --abort-on-storm set. Resume from the last "
-                              "healthy checkpoint with a lower --lr or different guard "
-                              "settings.", flush=True)
-                        raise SystemExit(3)
+                check_storm(storm_hist, window_steps, rejected, lr_scale_now,
+                            args.abort_on_storm, saver)
                 if writer is not None:
                     writer.add_scalar("Train/Loss", loss,
                                       batch_index + epoch * steps_per_epoch + 1)
@@ -309,14 +287,59 @@ def main(args) -> None:
                       f"resuming from results/{exp_name}/g_best.", flush=True)
             best_niqe = min(signal, best_niqe)
         epoch_path = os.path.join(samples_dir, f"g_epoch_{epoch + 1}")
-        ckpt_lib.save_checkpoint(epoch_path, checkpoint_payload(state, epoch + 1, best_niqe))
         # g_last tracks every saving epoch, so an interrupted run leaves one
         copies = ([os.path.join(results_dir, "g_best")] if is_best else []) \
             + [os.path.join(results_dir, "g_last")]
-        for dst in copies:
-            ckpt_lib.copy_checkpoint(epoch_path, dst)
-        print(f"Saved `{epoch_path}` and {', '.join(os.path.basename(d) for d in copies)} "
-              "(synchronously).", flush=True)
+        items = [(epoch_path, checkpoint_payload(state, epoch + 1, best_niqe), copies)]
+        save_epoch(saver, items)
+        print(f"Saving `{epoch_path}` and {', '.join(os.path.basename(d) for d in copies)} "
+              f"({'asynchronously' if saver is not None else 'synchronously'}).", flush=True)
+        failsafe(saver)
+    if saver is not None:
+        saver.wait()  # the last checkpoint is durable before the CLI returns
+
+
+def check_storm(storm_hist: deque, window_steps: int, rejected: float, lr_scale: float,
+                abort: bool, saver, what: str = "updates") -> None:
+    """The storm monitor: ``storm_hist`` keeps (steps, rejections) of the
+    last printed windows; over at least 200 trailing steps, more than 10%
+    rejected (2% once ``lr_scale`` sits on its floor) is a rollback storm,
+    printed as a verdict; with ``abort`` the save in flight is finished and
+    the run exits rc=3."""
+    storm_hist.append((window_steps, rejected))
+    trail_steps = sum(s for s, _ in storm_hist)
+    trail_rej = sum(r for _, r in storm_hist)
+    if trail_steps < 200 or not trail_rej or not (
+            trail_rej / trail_steps > 0.10
+            or (lr_scale <= LR_SCALE_FLOOR + 1e-9 and trail_rej / trail_steps > 0.02)):
+        return
+    print(f"STORM: training is NOT progressing — {trail_rej:.0f}/{trail_steps} recent {what} "
+          f"rejected ({100 * trail_rej / trail_steps:.1f}%), lr_scale {lr_scale:.4f}. The guard "
+          "is in a rollback storm; this run will not produce a usable model at the current "
+          "settings.", flush=True)
+    if abort:
+        if saver is not None:
+            saver.wait()
+        print("Aborting (rc=3): --abort-on-storm set. Resume from the last healthy checkpoint "
+              "with a lower --lr or different guard settings.", flush=True)
+        raise SystemExit(3)
+
+
+def save_epoch(saver, items) -> None:
+    """``items`` through ``saver.save_many``, or written at once without one."""
+    if saver is not None:
+        saver.save_many(items)
+    else:
+        ckpt_lib.write_checkpoints(items)
+
+
+def failsafe(saver, watermark: float = 0.8) -> None:
+    """The host-memory failsafe after a checkpoint: past ``watermark`` the
+    save in flight is finished and the run exits rc=4 (``utils/hostmem.py``)."""
+    if hostmem.host_memory_fraction() >= watermark:
+        if saver is not None:
+            saver.wait()
+        hostmem.check_host_memory(watermark)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -664,3 +664,94 @@ def test_validation_on_the_card_launches_the_rdb_kernel_69_times_an_image(cuda):
                      NIQE(crop_border=4, device=cuda), "Valid", 0, cuda)
     assert fused_rdb.launches - before == 69 * len(images)
     assert math.isfinite(score)
+
+
+# ---- the stage-2 trainer: card against CPU --------------------------------
+
+def _gan_update(device, batch, seed=5):
+    """One f32 G+D update (G 2 RRDBs at 64 channels, D at 64, VGG to conv2_2)
+    on ``device`` from weights drawn on the CPU: the metrics and D's state."""
+    from real_esrgan_tpu_torch.configuration import DegradationConfig, GanTrainConfig, ModelConfig
+    from real_esrgan_tpu_torch.train import esrgan
+
+    cfg = GanTrainConfig(use_bfloat16=False, remat_rrdb=False, seed=seed,
+                         vgg_nodes=("conv1_2", "conv2_2"), content_weights=(0.1, 1.0))
+    generator, discriminator, vgg = esrgan.build_models(ModelConfig(num_rrdb=2), cfg, device)
+    g_tx, d_tx = esrgan.build_optimizers(cfg, 10)
+    step = esrgan.make_gan_train_step(generator, discriminator, vgg, g_tx, d_tx, None, None,
+                                      DegradationConfig(), cfg)
+    state = esrgan.init_gan_state(generator, discriminator, g_tx, d_tx)
+    state, metrics = step.update(state, *(t.to(device) for t in batch))
+    return {k: float(v) for k, v in metrics.items()}, {k: v.cpu() for k, v in
+                                                       state.d_stats.items()}
+
+
+def test_one_f32_gan_update_on_the_card_equals_the_cpu(cuda):
+    """Loss terms, probabilities, both grad norms and D's sigmas within 1e-4
+    relative (TF32 off: the sums' order is all that differs)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    batch = (torch.rand(2, 32, 32, 3, generator=g), torch.rand(2, 128, 128, 3, generator=g))
+    card, card_stats = _gan_update(cuda, batch)
+    cpu, cpu_stats = _gan_update(torch.device("cpu"), batch)
+    for k in ("pixel", "content", "adversarial", "g_loss", "d_loss", "d_hr_prob", "d_sr_prob",
+              "g_grad_norm", "d_grad_norm"):
+        assert abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]), (k, card[k], cpu[k])
+    for k in cpu_stats:
+        if k.endswith("sigma"):
+            assert abs(float(card_stats[k] - cpu_stats[k])) <= 1e-4 * float(cpu_stats[k]), k
+
+
+def test_the_spectral_norm_on_the_card_ignores_tf32(cuda):
+    """D's power iteration is elementwise products and sums: with both TF32
+    flags on, u and sigma on the card stay within 1e-5 of the CPU's over
+    three calls (a TF32 product would move sigma by about 1e-3)."""
+    from real_esrgan_tpu_torch.models.discriminator import SN_LAYERS, UNetDiscriminator
+
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        d_cpu = UNetDiscriminator(generator=torch.Generator().manual_seed(2))
+        d_card = UNetDiscriminator(device=cuda)
+        d_card.load_state_dict(d_cpu.state_dict())
+        stats_cpu = d_cpu.stats
+        stats_card = {k: v.to(cuda) for k, v in stats_cpu.items()}
+        x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(3))
+        with torch.no_grad():
+            for _ in range(3):
+                _, stats_cpu = d_cpu(x, stats_cpu, update_stats=True)
+                _, stats_card = d_card(x.to(cuda), stats_card, update_stats=True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for name, *_ in SN_LAYERS:
+        sigma, ref = float(stats_card[f"{name}.sigma"]), float(stats_cpu[f"{name}.sigma"])
+        assert abs(sigma - ref) <= 1e-5 * ref, name
+        assert float((stats_card[f"{name}.u"].cpu() - stats_cpu[f"{name}.u"]).abs().max()) <= 1e-5
+
+
+def test_one_bf16_gan_step_on_the_card_launches_no_rdb_kernel(cuda):
+    """A full G+D step (degradation, bf16, remat, the trunk content backbone)
+    at 64 channels: finite losses, no RDB kernel launch (the training model
+    and the trunk backbone run the plain RDB)."""
+    from real_esrgan_tpu_torch.configuration import (
+        DegradationConfig, GanTrainConfig, KernelSynthesisConfig, ModelConfig, PipelineGeometry,
+    )
+    from real_esrgan_tpu_torch.models.rrdbnet import TrunkFeatures, trunk_feature_params
+    from real_esrgan_tpu_torch.train import esrgan
+
+    cfg = GanTrainConfig(content_weights=(1.0, 1.0, 1.0))
+    generator, discriminator, _ = esrgan.build_models(ModelConfig(num_rrdb=2), cfg, cuda)
+    trunk = TrunkFeatures((0, 1, 2), dtype=torch.bfloat16, device=cuda).requires_grad_(False)
+    trunk.load_state_dict(trunk_feature_params(generator.state_dict(), (0, 1, 2)))
+    g_tx, d_tx = esrgan.build_optimizers(cfg, 10)
+    step = esrgan.make_gan_train_step(generator, discriminator, trunk, g_tx, d_tx,
+                                      PipelineGeometry(160, 128, 4), KernelSynthesisConfig(),
+                                      DegradationConfig(), cfg)
+    state = esrgan.init_gan_state(generator, discriminator, g_tx, d_tx)
+    hr = (torch.rand(2, 160, 160, 3, device=cuda) * 255).to(torch.uint8)
+    before = fused_rdb.launches
+    state, metrics = step(state, hr, True, True)
+    torch.cuda.synchronize()
+    assert fused_rdb.launches == before
+    assert all(math.isfinite(float(v)) for v in metrics.values())
+    assert state.step == 1 and int(state.g_opt.count) == int(state.d_opt.count) == 1

@@ -42,5 +42,6 @@ def test_port_and_chip_smoke_import_no_jax():
                    "ops.augment", "ops.blur_kernels", "ops.noise", "ops.degradation",
                    "ops.host", "scripts.make_degraded_eval", "config", "models.ema",
                    "train.schedule", "train.optim", "train.guard", "train.esrnet",
-                   "data.dataset", "data.prefetcher", "train_realesrnet"):
+                   "data.dataset", "data.prefetcher", "train_realesrnet", "utils.hostmem",
+                   "models.discriminator", "models.vgg", "train.esrgan", "train_realesrgan"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

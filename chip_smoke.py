@@ -73,7 +73,20 @@
    degradation, the forward and backward and the guarded update, profiles
    one step, and holds one f32 update at 2 RRDBs on the card against the
    CPU (loss and grad norm within 1e-4 relative, TF32 off);
-10. drives the stage-2 trainer, ``python -m
+10. drives the trainers' data path on the same 96 crops, each ``--loader``
+   choice through ``make_train_loader``: ``threads`` (with the decode
+   cache), ``device`` (the pool on the card), ``native`` (the C++ loader,
+   where it builds: else it prints why not) and ``grain`` (the resumable
+   stream); the first epochs of threads, device and native are the same
+   uint8 batches on the card, the grain stream's first batch is the CPU
+   stream's, the pool sends only its int64 index vector a step; times the
+   full-width stage-1 step fed by each loader through ``DevicePrefetcher``
+   (images/s, the host's wait in ``next()``) beside two synthetic batches
+   on the card, then the loaders again in the opposite order; and runs ``train_realesrnet --loader grain`` for
+   one epoch, then two through ``--resume auto``: loader_state_p0.bin is
+   written and restored, and the resumed run's first batch is the unbroken
+   stream's;
+11. drives the stage-2 trainer, ``python -m
    real_esrgan_tpu_torch.train_realesrgan``, in-process the same way, D at
    64 channels, warm-started from the committed ESRNet weights with the
    frozen-trunk content backbone: ``--epochs 1``, then ``--epochs 2
@@ -87,7 +100,7 @@
    profiles one step, and holds one f32 G+D update at 2 RRDBs on the card
    against the CPU (loss terms, grad norms and D's sigmas within 1e-4
    relative, TF32 off);
-11. times each kernel against its plain version, its bound and, where one
+12. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
@@ -101,6 +114,7 @@ off, the degradation with PyTorch's defaults.  Needs one GPU and no network.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -1264,6 +1278,250 @@ def drive_train(tree_sr: np.ndarray, gpu: str) -> int:
     return launches
 
 
+# the loaders phase: each --loader choice of the trainers on the trainer's 96
+# crops of 400 (crop = image, so every loader yields whole images), the
+# stage-1 step at full width timed over LOADER_TIMED steps after
+# LOADER_WARMUP, fed through DevicePrefetcher as the CLI feeds it, beside
+# two synthetic batches already on the card; then the loaders again in the
+# opposite order after LOADER_REWARM steps each (their caches and workers
+# are warm by then), so an effect of the order shows
+LOADER_WARMUP, LOADER_TIMED, LOADER_REWARM = 3, 6, 1
+# the loaders whose first epoch must be equal byte for byte on the card
+SAME_BYTES = ("threads", "device", "native")
+
+
+def loader_choices(native: bool) -> dict:
+    """name -> (TrainConfig of that --loader choice, the class it must give)."""
+    import dataclasses
+
+    from real_esrgan_tpu_torch.configuration import TrainConfig
+    from real_esrgan_tpu_torch.data import dataset, device_pool, grain_loader, native_loader
+
+    cfg = TrainConfig()
+    choices = {"threads": (dataclasses.replace(cfg, loader="threads"), dataset.ThreadedLoader),
+               "device": (dataclasses.replace(cfg, loader="device"),
+                          device_pool.DevicePoolLoader)}
+    if native:  # auto without the pool's budget: the C++ loader
+        choices["native"] = (dataclasses.replace(cfg, loader="auto", device_pool_budget_bytes=0),
+                             native_loader.NativeThreadedLoader)
+    choices["grain"] = (dataclasses.replace(cfg, loader="grain"), grain_loader.GrainLoader)
+    return choices
+
+
+def first_epochs(loaders: dict) -> dict:
+    """Each loader's first epoch through DevicePrefetcher onto the card, with
+    the host-to-device bytes a step it took."""
+    from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
+
+    out = {}
+    for name, (ds, loader) in loaders.items():
+        index_before = getattr(loader, "index_bytes", 0)
+        pf = DevicePrefetcher(loader, "cuda")
+        batches = [b.clone() for b in pf]
+        torch.cuda.synchronize()
+        steps = len(batches)
+        out[name] = {"batches": batches, "steps": steps,
+                     "h2d_bytes_per_step": (pf.h2d_bytes + getattr(loader, "index_bytes", 0)
+                                            - index_before) / steps}
+    return out
+
+
+def loader_feed(loader):
+    """The loader's batches on the card, epoch after epoch, as the CLI takes them."""
+    from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
+
+    while True:
+        yield from DevicePrefetcher(loader, "cuda")
+
+
+def time_loader(step, state, feed, flags, warmup: int) -> tuple:
+    """``warmup`` steps, then LOADER_TIMED between two CUDA events, each on
+    the next batch of ``feed``; the host's wait in ``next()`` is summed over
+    the timed steps."""
+    t0 = time.perf_counter()
+    for i in range(LOADER_WARMUP - warmup, LOADER_WARMUP):
+        state, metrics = step(state, next(feed), *flags[i])
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    wait_s = 0.0
+    start.record()
+    for i in range(LOADER_WARMUP, LOADER_WARMUP + LOADER_TIMED):
+        t0 = time.perf_counter()
+        batch = next(feed)
+        wait_s += time.perf_counter() - t0
+        state, metrics = step(state, batch, *flags[i])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / LOADER_TIMED
+    check(bool(torch.isfinite(metrics["loss"])), "a loader's timed step gave a non-finite loss")
+    return state, {"ms_per_step": ms, "images_per_second": TRAIN_BATCH / ms * 1e3,
+                   "next_wait_ms_per_step": wait_s / LOADER_TIMED * 1e3,
+                   "warmup_seconds": warmup_s}
+
+
+def drive_grain_resume(train_dir: str, tmp: str) -> dict:
+    """``train_realesrnet --loader grain`` in-process at full width, batch 48:
+    --epochs 1, then --epochs 2 --resume auto.  The first run writes
+    loader_state_p0.bin (epoch tag 1), the second restores it, and its first
+    batch is batch 2 of an unbroken stream of the same seed (read on the CPU
+    with no workers), not batch 0."""
+    from real_esrgan_tpu_torch import train_realesrnet as trainer
+    from real_esrgan_tpu_torch.configuration import TrainConfig
+    from real_esrgan_tpu_torch.data import grain_loader
+
+    firsts, restored = [], []
+    prefetcher, restore = trainer.DevicePrefetcher, grain_loader.restore_loader_state
+
+    class Recording(prefetcher):
+        def __iter__(self):
+            for i, batch in enumerate(super().__iter__()):
+                if i == 0:
+                    firsts.append(batch.cpu().numpy())
+                yield batch
+
+    def recorded(*args, **kwargs):
+        restored.append(restore(*args, **kwargs))
+        return restored[-1]
+
+    cwd = os.getcwd()
+    state_tags = []
+    trainer.DevicePrefetcher, grain_loader.restore_loader_state = Recording, recorded
+    os.chdir(tmp)
+    try:
+        for epochs, resume in ((1, []), (2, ["--resume", "auto"])):
+            args = trainer.build_parser().parse_args(
+                ["--train-dir", train_dir, "--valid-dir", os.path.join(tmp, "none"),
+                 "--test-lr-dir", os.path.join(tmp, "none"), "--test-hr-dir",
+                 os.path.join(tmp, "none"), "--batch-size", str(TRAIN_BATCH), "--epochs",
+                 str(epochs), "--exp-name", "chip_smoke_grain", "--loader", "grain",
+                 "--no-tensorboard", *resume])
+            trainer.main(args)
+            with open(os.path.join(tmp, "samples", "chip_smoke_grain",
+                                   "loader_state_p0.bin"), "rb") as f:
+                state_tags.append(int.from_bytes(f.read(8), "little"))
+    finally:
+        os.chdir(cwd)
+        trainer.DevicePrefetcher, grain_loader.restore_loader_state = prefetcher, restore
+    files = sorted(os.path.join(train_dir, f) for f in os.listdir(train_dir))
+    unbroken = grain_loader.GrainLoader(files, TRAIN_BATCH, DEGRADE_GEO.hr_size, num_workers=0,
+                                        seed=TrainConfig().seed)
+    stream = [b.copy() for _ in range(2) for b in unbroken]
+    result = {"state_file_epoch_tags": state_tags, "restored": restored,
+              "first_batch_equals_stream": [bool(np.array_equal(firsts[0], stream[0])),
+                                            bool(np.array_equal(firsts[1], stream[2]))],
+              "resumed_batch_differs_from_batch_0": not np.array_equal(firsts[1], stream[0])}
+    check(state_tags == [1, 2], f"loader_state_p0.bin epoch tags {state_tags}")
+    check(restored == [True], f"the resumed run restored the stream: {restored}")
+    check(all(result["first_batch_equals_stream"]) and result["resumed_batch_differs_from_batch_0"],
+          f"the resumed grain stream is not the unbroken one: {result}")
+    return result
+
+
+def drive_loaders(tree_sr: np.ndarray, gpu: str) -> None:
+    """Every --loader choice of the trainers on the card, on the trainer's
+    96 crops of 400 (write_train_data): ``make_train_loader`` gives the
+    loader of each choice (``native`` only where the C++ loader builds:
+    ``native_loader`` says why not); the first epochs of threads, device and
+    native are the same uint8 batches on the card, byte for byte; the grain
+    stream's first batch equals the CPU stream's; the pool's host-to-device
+    traffic a step is its index vector; each loader's imgs/s feeding the full-width stage-1 step, with
+    the host's wait in next(), in two rounds of opposite order beside two
+    synthetic batches on the card; the pool's device bytes and the decode
+    caches; then the grain resume through the CLI."""
+    from real_esrgan_tpu_torch.configuration import ModelConfig, TrainConfig
+    from real_esrgan_tpu_torch.data import grain_loader, native_loader
+    from real_esrgan_tpu_torch.data.dataset import TrainImageDataset
+    from real_esrgan_tpu_torch.train import esrnet
+    from real_esrgan_tpu_torch.train_realesrnet import SyntheticHRDataset, make_train_loader
+
+    t_phase = time.perf_counter()
+    native = native_loader.available()
+    emit(native_loader={"available": native, "reason": native_loader.unavailable_reason()})
+    choices = loader_choices(native)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, _ = write_train_data(tmp, tree_sr)
+        loaders = {}
+        for name, (cfg, kind) in choices.items():
+            ds = TrainImageDataset(train_dir, DEGRADE_GEO.hr_size,
+                                   cache_bytes=cfg.decoded_cache_bytes)
+            loader = make_train_loader(ds, TRAIN_BATCH, cfg, DEGRADE_GEO, torch.device("cuda"))
+            check(type(loader) is kind, f"--loader {cfg.loader} gave {type(loader).__name__}")
+            loaders[name] = (ds, loader)
+        pool = loaders["device"][1]
+        check(pool.pool.is_cuda, "the device pool does not lie on the card")
+        firsts = first_epochs(loaders)
+        same = [name for name in SAME_BYTES if name in loaders]
+        reference = firsts["threads"]["batches"]
+        for name in same:
+            check(len(firsts[name]["batches"]) == len(reference)
+                  and all(torch.equal(a, b) for a, b in zip(firsts[name]["batches"], reference)),
+                  f"the first epoch of {name} is not the threaded loader's on the card")
+        files = sorted(os.path.join(train_dir, f) for f in os.listdir(train_dir))
+        cpu_stream = grain_loader.GrainLoader(files, TRAIN_BATCH, DEGRADE_GEO.hr_size,
+                                              num_workers=0, seed=TrainConfig().seed)
+        grain_equal = bool(np.array_equal(firsts["grain"]["batches"][0].cpu().numpy(),
+                                          next(iter(cpu_stream))))
+        check(grain_equal, "the grain stream's first batch on the card is not the CPU stream's")
+        index_bytes = TRAIN_BATCH * 8
+        check(firsts["device"]["h2d_bytes_per_step"] == index_bytes,
+              f"the pool moved {firsts['device']['h2d_bytes_per_step']} bytes a step to the card")
+        emit(loaders_same_bytes={
+            "loaders": same, "steps": len(reference), "batch": list(reference[0].shape),
+            "grain_first_batch_equals_cpu_stream": grain_equal,
+            "h2d_bytes_per_step": {n: f["h2d_bytes_per_step"] for n, f in firsts.items()},
+            "pool_device_bytes": pool.pool.nbytes,
+            "pool_device": str(pool.pool.device)})
+        del firsts, reference
+
+        cfg = TrainConfig()
+        model = esrnet.build_generator(ModelConfig(), cfg, "cuda",
+                                       generator=torch.Generator().manual_seed(0))
+        opt = esrnet.build_optimizer(cfg, 1000)
+        step = esrnet.make_train_step(
+            model, opt, DEGRADE_GEO, degrade_cfg.KernelSynthesisConfig(),
+            degrade_cfg.DegradationConfig(), cfg.ema_decay, seed=cfg.seed,
+            reject_limit=cfg.grad_reject_limit, rollback_after=cfg.rollback_after,
+            reject_mult=cfg.grad_reject_mult, clamp_mode=cfg.train_clamp)
+        state = esrnet.init_state(model, opt)
+        coins = np.random.default_rng((0, 0, 17))
+        dcfg = degrade_cfg.DegradationConfig()
+        flags = [(bool(coins.random() < dcfg.resize_probs1[0]),
+                  bool(coins.random() < dcfg.resize_probs2[0]))
+                 for _ in range(LOADER_WARMUP + LOADER_TIMED)]
+        synthetic = SyntheticHRDataset(DEGRADE_GEO.hr_size, length=2 * TRAIN_BATCH, seed=0)
+        on_card = [torch.from_numpy(np.stack([synthetic.load(b * TRAIN_BATCH + i, None)
+                                              for i in range(TRAIN_BATCH)])).cuda()
+                   for b in range(2)]
+        rounds = [(["synthetic", *loaders], LOADER_WARMUP), (list(loaders)[::-1], LOADER_REWARM)]
+        timings = {name: [] for name in rounds[0][0]}
+        for order, warmup in rounds:
+            for name in order:
+                feed = (itertools.cycle(on_card) if name == "synthetic"
+                        else loader_feed(loaders[name][1]))
+                state, timing = time_loader(step, state, feed, flags, warmup)
+                if name != "synthetic":
+                    feed.close()
+                timings[name].append({"warmup_steps": warmup, **timing})
+        caches = {"threads": loaders["threads"][0].cache_stats(),
+                  "native": loaders["native"][1].cache_stats() if native else None}
+        loaders["grain"][1].close()
+        emit(loaders_time={"card": gpu, "batch": TRAIN_BATCH,
+                           "model": "23 RRDBs, 64 channels, growth 32, bf16, remat",
+                           "geometry": "hr 400 -> crop 256, x4", "steps_timed": LOADER_TIMED,
+                           "up_flags": flags[LOADER_WARMUP:],
+                           "order": [order for order, _ in rounds], "loaders": timings,
+                           "decode_cache": {n: None if c is None else
+                                            {"entries": c[0], "bytes": c[1]}
+                                            for n, c in caches.items()}})
+        del loaders, pool, state, step, model, on_card
+        torch.cuda.empty_cache()
+        resume = drive_grain_resume(train_dir, tmp)
+    emit(loaders={"card": gpu, "native_available": native,
+                  "same_bytes": list(SAME_BYTES if native else SAME_BYTES[:2]),
+                  "grain_resume": resume, "seconds": time.perf_counter() - t_phase})
+
+
 GAN_METRICS = ("pixel", "content", "adversarial", "g_loss", "d_loss", "d_hr_prob", "d_sr_prob",
                "g_grad_norm", "d_grad_norm", "g_rejected", "d_rejected")
 
@@ -1656,6 +1914,7 @@ def main() -> int:
     tree_sr = read_png(TREE_SR)
     drive_degrade(tree_sr)
     train_launches = drive_train(tree_sr, gpu)
+    drive_loaders(tree_sr, gpu)
     gan_launches = drive_gan(tree_sr, gpu)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())

@@ -5,8 +5,8 @@ and ``GanTrainConfig``, with the same fields and defaults.
 
 They are pure-Python frozen dataclasses (hashable, so usable as cache keys),
 copied rather than imported because the port imports nothing of the JAX
-package.  Fields for loaders the port does not have yet (the native and
-grain loaders, the device pool, the decode cache) keep their defaults.
+package.  The loader fields (``loader``, ``decoded_cache_bytes``,
+``device_pool_budget_bytes``) drive the trainers' ``make_train_loader``.
 """
 
 from __future__ import annotations
@@ -153,8 +153,9 @@ class TrainConfig:
 
     batch_size: int = 48
     num_workers: int = 4
-    # "auto" = native C++ pool, falling back to Python threads;
-    # "grain" = deterministic resumable grain pipeline (data/grain_loader.py);
+    # "auto" = the device pool when the set fits device_pool_budget_bytes,
+    # else the native C++ pool, else Python threads; "device" = force the
+    # pool; "grain" = the deterministic resumable stream (data/grain_loader.py);
     # "threads" = force the Python ThreadedLoader
     loader: str = "auto"
     # decoded-image RAM cache budget for the epoch loop (both the C++ pool

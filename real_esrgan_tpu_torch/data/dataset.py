@@ -13,7 +13,9 @@ Images are PNGs decoded by ``utils/imgio.read_png``, which gives the pixels
 ``default_rng(seed + epoch)`` and each crop's RNG ``default_rng((seed,
 epoch, index))``, the JAX loader's, so the batches are its batches byte for
 byte.  As in the JAX loader, ``ThreadedLoader.epoch`` counts the loader's own
-passes from 0, and a resumed run does not set it.  There is no decode cache.
+passes from 0, and a resumed run does not set it.  ``TrainImageDataset``
+keeps decoded images in RAM up to ``cache_bytes`` (first fit, no eviction),
+so an epoch after the first decodes only what did not fit.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -47,21 +49,40 @@ def _read_rgb(path: str) -> np.ndarray:
 
 class TrainImageDataset:
     """Yields uint8 RGB HR crops of exactly ``hr_size``; an image smaller
-    than that is reflect-101 padded up to it (bottom and right)."""
+    than that is reflect-101 padded up to it (bottom and right).
 
-    def __init__(self, image_dir: str, hr_size: int):
+    ``cache_bytes`` > 0 keeps decoded (padded, uncropped) images in RAM:
+    first fit with no eviction, so a dataset over its budget caches its head
+    and decodes its tail.  Crops stay random per call."""
+
+    def __init__(self, image_dir: str, hr_size: int, cache_bytes: int = 0):
         self.files = _list_images(image_dir)
         self.hr_size = hr_size
+        self._cache: Dict[int, np.ndarray] = {}
+        self._cache_left = cache_bytes
+        self._cache_lock = threading.Lock()
 
     def __len__(self):
         return len(self.files)
 
+    def cache_stats(self) -> Tuple[int, int]:
+        """(entries, bytes) of the decode cache."""
+        with self._cache_lock:
+            return len(self._cache), sum(img.nbytes for img in self._cache.values())
+
     def _decode(self, index: int) -> np.ndarray:
+        cached = self._cache.get(index)
+        if cached is not None:
+            return cached
         img = _read_rgb(self.files[index])
         h, w = img.shape[:2]
         s = self.hr_size
         if h < s or w < s:
             img = np.pad(img, ((0, max(0, s - h)), (0, max(0, s - w)), (0, 0)), mode="reflect")
+        with self._cache_lock:  # loader threads decode at once
+            if index not in self._cache and img.nbytes <= self._cache_left:
+                self._cache_left -= img.nbytes
+                self._cache[index] = img
         return img
 
     def load(self, index: int, rng: np.random.Generator) -> np.ndarray:

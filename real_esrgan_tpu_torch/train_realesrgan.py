@@ -25,7 +25,10 @@ with ``--allow-random-vgg`` (``--synthetic`` implies it); without either it
 refuses.  ``--content-backbone trunk`` taps the warm-started generator's own
 trunk (conv1 and RRDBs 1-2, each weighted 1) and refuses without a warm start.
 The flags are the root script's, plus ``--cpu``; without CUDA and without
-``--cpu`` it raises.  Both TF32 flags are turned off.
+``--cpu`` it raises.  Both TF32 flags are turned off.  ``--loader`` is the
+stage-1 trainer's (``train_realesrnet.make_train_loader``); the ``grain``
+stream's position is saved at every saving epoch and restored with
+``--resume-g``.
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ import torch
 
 from real_esrgan_tpu_torch import config as run_config
 from real_esrgan_tpu_torch import resolve_device
+from real_esrgan_tpu_torch.data import grain_loader
 from real_esrgan_tpu_torch.data.dataset import TrainImageDataset, build_eval_datasets
 from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
 from real_esrgan_tpu_torch.metrics.niqe import NIQE
@@ -56,7 +60,8 @@ from real_esrgan_tpu_torch.train.esrnet import (
 )
 from real_esrgan_tpu_torch.train.guard import guard_from_dict, guard_to_dict
 from real_esrgan_tpu_torch.train_realesrnet import (
-    SyntheticHRDataset, check_storm, failsafe, make_train_loader, restore_opt_state, save_epoch,
+    LOADERS, SyntheticHRDataset, check_storm, failsafe, make_train_loader, restore_opt_state,
+    save_epoch,
     validate,
 )
 from real_esrgan_tpu_torch.utils.meters import AverageMeter, ProgressMeter
@@ -160,10 +165,11 @@ def main(args) -> None:
         train_ds = SyntheticHRDataset(geo.hr_size, length=args.steps_per_epoch * batch)
         valid_ds, test_ds = [], []
     else:
-        train_ds = TrainImageDataset(cfg.train_image_dir, geo.hr_size)
+        train_ds = TrainImageDataset(cfg.train_image_dir, geo.hr_size,
+                                     cache_bytes=cfg.decoded_cache_bytes)
         valid_ds, test_ds = build_eval_datasets(cfg.valid_image_dir, cfg.test_lr_image_dir,
                                                 cfg.test_hr_image_dir, geo.crop_size, geo.scale)
-    loader = make_train_loader(train_ds, batch, cfg)
+    loader = make_train_loader(train_ds, batch, cfg, geo, device)
     steps_per_epoch = len(loader)
     print(f"Loaded datasets: {len(train_ds)} train images, {steps_per_epoch} steps/epoch.")
 
@@ -200,6 +206,8 @@ def main(args) -> None:
         state, start_epoch, best_niqe = resume_generator(state, resume_g)
         warm = True
         print(f"Resumed generator GAN state from `{resume_g}` at epoch {start_epoch}.")
+        if grain_loader.restore_loader_state(loader, samples_dir, start_epoch):
+            print("Restored data-loader stream position.")
     if resume_d and os.path.exists(resume_d):
         state = resume_discriminator(state, resume_d)
         print(f"Resumed discriminator from `{resume_d}`.")
@@ -287,6 +295,8 @@ def main(args) -> None:
         # best_niqe folds in only on saving epochs, so g_best always names a
         # checkpoint that exists
         saving = (epoch + 1) % cfg.checkpoint_frequency == 0 or (epoch + 1) == epochs
+        if saving:  # the stream position the next epoch starts from
+            grain_loader.save_loader_state(loader, samples_dir, epoch + 1)
         if not saving and writer is None:
             continue  # the NIQE would be discarded
         valid_niqe = (validate(eval_fn, state.g_ema, valid_ds, niqe_model, "Valid", epoch,
@@ -351,9 +361,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="save every N epochs (0 = config default); the last epoch "
                              "always saves")
     parser.add_argument("--loader", type=str, default="",
-                        choices=("", "auto", "device", "grain", "threads"),
-                        help="training data loader (default: config); device and grain "
-                             "are not yet ported")
+                        choices=("", *LOADERS),
+                        help="training data loader (default: config)")
     parser.add_argument("--train-dir", type=str, default="")
     parser.add_argument("--valid-dir", type=str, default="")
     parser.add_argument("--test-lr-dir", type=str, default="")

@@ -17,9 +17,11 @@ A saving epoch's checkpoint is written by ``AsyncSaver`` while the next
 epoch trains (synchronously where ``async_checkpoint`` is off), then the
 host-memory failsafe runs: past 80% of the machine's RAM the run exits
 rc=4, for a fresh process to resume.  Both TF32 flags are turned off, so
-``use_bfloat16=False`` trains in float32.  The loader is the Python
-``ThreadedLoader`` (``--loader auto`` and ``threads``); ``device`` and
-``grain`` are not ported yet and raise.
+``use_bfloat16=False`` trains in float32.  ``--loader`` takes the JAX
+trainer's choices (``make_train_loader``): ``auto`` (the device-resident
+pool, else the C++ decode loader, else Python threads), ``device``,
+``grain`` (the resumable stream, whose position is saved at every saving
+epoch and restored on resume) and ``threads``.
 """
 
 from __future__ import annotations
@@ -35,9 +37,11 @@ import torch
 
 from real_esrgan_tpu_torch import config as run_config
 from real_esrgan_tpu_torch import resolve_device
+from real_esrgan_tpu_torch.data import grain_loader, native_loader
 from real_esrgan_tpu_torch.data.dataset import (
     ThreadedLoader, TrainImageDataset, build_eval_datasets,
 )
+from real_esrgan_tpu_torch.data.device_pool import DevicePoolLoader, build_pool_array
 from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
 from real_esrgan_tpu_torch.metrics.niqe import NIQE
 from real_esrgan_tpu_torch.train import checkpoint as ckpt_lib
@@ -53,14 +57,48 @@ from real_esrgan_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 LR_SCALE_FLOOR = 1.0 / 64.0
 
 
-def make_train_loader(train_ds, batch: int, cfg):
-    """The training batch loader of ``cfg.loader``: ``auto`` and ``threads``
-    are the Python ``ThreadedLoader``."""
-    mode = getattr(cfg, "loader", "auto")
-    if mode in ("device", "grain"):
-        raise NotImplementedError(f"--loader {mode} is not yet ported; use auto or threads")
-    if mode not in ("auto", "threads"):
-        raise ValueError(f"unknown loader {mode!r}")
+LOADERS = ("auto", "device", "grain", "threads")
+
+
+def make_train_loader(train_ds, batch: int, cfg, geo, device):
+    """The training batch loader of ``cfg.loader``, the JAX trainer's chain.
+
+    ``auto`` takes the device-resident pool (``data/device_pool.py``: the
+    whole crop set on ``device``, each batch gathered there by index) when
+    the set fits ``cfg.device_pool_budget_bytes``; then the C++ decode and
+    crop pool (GIL-free, ``cfg.decoded_cache_bytes`` of decoded images in
+    RAM) where it builds; then Python threads.  ``device`` forces the pool
+    and raises if the set does not fit or is not ``hr_size``-square;
+    ``grain`` takes the resumable stream loader; ``threads`` forces Python
+    threads.  Each choice prints the loader it took."""
+    mode = cfg.loader
+    if mode not in LOADERS:
+        raise ValueError(f"unknown loader {mode!r}; choose one of {LOADERS}")
+    pool_budget = cfg.device_pool_budget_bytes
+    if mode == "device" or (mode == "auto" and pool_budget):
+        pool = build_pool_array(train_ds, geo.hr_size, pool_budget or (1 << 62))
+        if pool is not None:
+            print(f"Using device-resident pool loader ({pool.nbytes / 1e6:.0f} MB on {device}).")
+            return DevicePoolLoader(pool, batch, seed=cfg.seed, device=device)
+        if mode == "device":
+            raise ValueError("--loader device: dataset exceeds device_pool_budget_bytes or "
+                             "images are not uniformly hr_size-shaped")
+    if mode == "grain":
+        if not hasattr(train_ds, "files"):
+            raise ValueError("--loader grain streams image files; this dataset has none "
+                             "(--synthetic takes auto, device or threads)")
+        print("Using grain-contract stream loader (torch.utils.data workers).")
+        return grain_loader.GrainLoader(train_ds.files, batch, geo.hr_size,
+                                        num_workers=cfg.num_workers, seed=cfg.seed)
+    if mode == "auto" and hasattr(train_ds, "files"):
+        if native_loader.available():
+            print("Using native C++ data loader.")
+            return native_loader.NativeThreadedLoader(
+                train_ds.files, batch, geo.hr_size, num_threads=cfg.num_workers, seed=cfg.seed,
+                cache_bytes=cfg.decoded_cache_bytes)
+        print(f"Native loader unavailable ({native_loader.unavailable_reason().splitlines()[0]}); "
+              "using Python threads.")
+    print("Using Python threaded loader.")
     return ThreadedLoader(train_ds, batch, cfg.num_workers, seed=cfg.seed)
 
 
@@ -162,10 +200,11 @@ def main(args) -> None:
         train_ds = SyntheticHRDataset(geo.hr_size, length=args.steps_per_epoch * batch)
         valid_ds, test_ds = [], []
     else:
-        train_ds = TrainImageDataset(cfg.train_image_dir, geo.hr_size)
+        train_ds = TrainImageDataset(cfg.train_image_dir, geo.hr_size,
+                                     cache_bytes=cfg.decoded_cache_bytes)
         valid_ds, test_ds = build_eval_datasets(cfg.valid_image_dir, cfg.test_lr_image_dir,
                                                 cfg.test_hr_image_dir, geo.crop_size, geo.scale)
-    loader = make_train_loader(train_ds, batch, cfg)
+    loader = make_train_loader(train_ds, batch, cfg, geo, device)
     steps_per_epoch = len(loader)
     print(f"Loaded datasets: {len(train_ds)} train images, {steps_per_epoch} steps/epoch.")
 
@@ -187,6 +226,8 @@ def main(args) -> None:
     if resume:
         state, start_epoch, best_niqe = resume_state(state, resume, device)
         print(f"Resumed from `{resume}` at epoch {start_epoch}.")
+        if grain_loader.restore_loader_state(loader, samples_dir, start_epoch):
+            print("Restored data-loader stream position.")
 
     train_step = make_train_step(
         model, opt, geo, kcfg, dcfg, cfg.ema_decay, seed=cfg.seed,
@@ -263,6 +304,8 @@ def main(args) -> None:
         # best_niqe folds in only on saving epochs, so g_best always names a
         # checkpoint that exists
         saving = (epoch + 1) % cfg.checkpoint_frequency == 0 or (epoch + 1) == epochs
+        if saving:  # the stream position the next epoch starts from
+            grain_loader.save_loader_state(loader, samples_dir, epoch + 1)
         if not saving and writer is None:
             continue  # the NIQE would be discarded
         valid_niqe = (validate(eval_fn, state.ema_params, valid_ds, niqe_model, "Valid", epoch,
@@ -369,9 +412,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="save every N epochs (0 = config default); the last epoch "
                              "always saves")
     parser.add_argument("--loader", type=str, default="",
-                        choices=("", "auto", "device", "grain", "threads"),
-                        help="training data loader (default: config); device and grain "
-                             "are not yet ported")
+                        choices=("", *LOADERS),
+                        help="training data loader (default: config)")
     parser.add_argument("--train-dir", type=str, default="")
     parser.add_argument("--valid-dir", type=str, default="")
     parser.add_argument("--test-lr-dir", type=str, default="")

@@ -755,3 +755,45 @@ def test_one_bf16_gan_step_on_the_card_launches_no_rdb_kernel(cuda):
     assert fused_rdb.launches == before
     assert all(math.isfinite(float(v)) for v in metrics.values())
     assert state.step == 1 and int(state.g_opt.count) == int(state.d_opt.count) == 1
+
+
+def test_device_pool_gathers_on_the_card_what_it_gathers_on_the_cpu(cuda):
+    """The pool lies on the card, each batch is gathered there, and only the
+    int64 index vectors cross to it; the batches equal the CPU pool's."""
+    import numpy as np
+
+    from real_esrgan_tpu_torch.data.device_pool import DevicePoolLoader
+
+    pool = np.random.default_rng(5).integers(0, 256, (13, 40, 40, 3), dtype=np.uint8)
+    card, host = (DevicePoolLoader(pool, 4, seed=2, device=d) for d in (cuda, "cpu"))
+    assert card.pool.device.type == "cuda"
+    for _ in range(2):
+        for a, b in zip(card, host):
+            assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    assert card.index_bytes == 2 * 3 * 4 * 8
+
+
+def test_side_stream_prefetcher_delivers_the_bytes_it_was_given(cuda):
+    """Host batches reach the card through the side stream, byte for byte,
+    while the consuming stream is busy; a batch on the card passes through."""
+    import numpy as np
+
+    from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
+
+    rng = np.random.default_rng(9)
+    host = [rng.integers(0, 256, (8, 400, 400, 3), dtype=np.uint8) for _ in range(6)]
+    busy = torch.randn(4096, 4096, device=cuda)
+    pf = DevicePrefetcher(host, cuda)
+    got, sums = [], []
+    for batch in pf:
+        for _ in range(4):
+            busy = busy @ busy * 1e-4  # keeps the consuming stream busy during the copies
+        sums.append(batch.to(torch.int64).sum())  # read on the consuming stream
+        got.append(batch)
+    assert len(got) == 6 and pf.h2d_bytes == sum(h.nbytes for h in host)
+    for batch, total, want in zip(got, sums, host):
+        assert batch.device.type == "cuda" and np.array_equal(batch.cpu().numpy(), want)
+        assert int(total) == int(want.sum(dtype=np.int64))
+    on_card = [torch.full((2, 3), i, dtype=torch.uint8, device=cuda) for i in range(3)]
+    through = DevicePrefetcher(on_card, cuda)
+    assert all(a is b for a, b in zip(through, on_card)) and through.h2d_bytes == 0

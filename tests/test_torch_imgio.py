@@ -215,8 +215,13 @@ def test_paeth_png_of_2048x1080_reads_in_under_half_a_second(tmp_path):
     assert cv2.imwrite(path, rgb, [cv2.IMWRITE_PNG_FILTER, cv2.IMWRITE_PNG_FILTER_PAETH])
     assert filter_types(path) == {4}
     read_png(path)  # warm: imports, allocator
-    t0 = time.perf_counter()
-    got = read_png(path)
-    seconds = time.perf_counter() - t0
-    np.testing.assert_array_equal(got, rgb[..., ::-1])  # cv2 wrote BGR
-    assert seconds < 0.5, f"read_png took {seconds:.3f} s"
+    # the best of three reads: a read of about 0.2 s alone can be slowed past
+    # the bound by other processes on the machine; a per-pixel decoder takes
+    # seconds every time
+    seconds = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        got = read_png(path)
+        seconds.append(time.perf_counter() - t0)
+        np.testing.assert_array_equal(got, rgb[..., ::-1])  # cv2 wrote BGR
+    assert min(seconds) < 0.5, f"read_png took {', '.join(f'{s:.3f}' for s in seconds)} s"

@@ -43,5 +43,6 @@ def test_port_and_chip_smoke_import_no_jax():
                    "ops.host", "scripts.make_degraded_eval", "config", "models.ema",
                    "train.schedule", "train.optim", "train.guard", "train.esrnet",
                    "data.dataset", "data.prefetcher", "train_realesrnet", "utils.hostmem",
-                   "models.discriminator", "models.vgg", "train.esrgan", "train_realesrgan"):
+                   "models.discriminator", "models.vgg", "train.esrgan", "train_realesrgan",
+                   "data.device_pool", "data.native_loader", "data.grain_loader"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

@@ -126,9 +126,19 @@ def test_abort_on_storm_exits_3(tiny, capsys):
 
 
 @pytest.mark.parametrize("loader", ["device", "grain"])
-def test_unported_loaders_raise(tiny, loader):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        trainer.main(_args(loader=loader))
+def test_unported_loaders_raise(tiny, loader, capsys):
+    """Both loaders are ported now: on --synthetic data ``device`` trains
+    from the device-resident pool, and ``grain``, which streams image files,
+    refuses a dataset that has none (tests/test_torch_data_cli.py drives both
+    on files)."""
+    if loader == "grain":
+        with pytest.raises(ValueError, match="--loader grain streams image files"):
+            trainer.main(_args(loader=loader))
+        return
+    trainer.main(_args(loader=loader))
+    assert "Using device-resident pool loader" in capsys.readouterr().out
+    tree = ckpt_lib.load_checkpoint(os.path.join("results", run_config.exp_name, "g_last"))
+    assert (tree["step"], tree["epoch"]) == (2, 1)
 
 
 def test_without_cpu_and_without_cuda_it_raises(tiny):

@@ -98,3 +98,27 @@ def test_prefetcher_hands_the_batches_over(png_dir):
     for t, b in zip(moved, batches):
         assert isinstance(t, torch.Tensor) and t.dtype == torch.uint8
         assert np.array_equal(t.numpy(), b)
+
+
+def test_prefetcher_producer_ends_when_the_consumer_stops():
+    """A consumer that leaves mid-epoch ends the producer thread, which
+    stops pulling and releases the loader's iterator."""
+    import threading
+    import time
+
+    pulled, closed = [], threading.Event()
+
+    def loader():
+        try:
+            for i in range(50):
+                pulled.append(i)
+                yield np.full((2, 4, 4, 3), i, np.uint8)
+        finally:
+            closed.set()
+
+    it = iter(DevicePrefetcher(loader(), "cpu", buffer_size=2))
+    assert int(next(it)[0, 0, 0, 0]) == 0
+    it.close()
+    assert closed.wait(timeout=10), "the producer kept the loader's iterator"
+    time.sleep(0.3)
+    assert len(pulled) <= 4  # one taken, two queued, one in hand

@@ -100,7 +100,24 @@
    profiles one step, and holds one f32 G+D update at 2 RRDBs on the card
    against the CPU (loss terms, grad norms and D's sigmas within 1e-4
    relative, TF32 off);
-12. times each kernel against its plain version, its bound and, where one
+12. drives data parallelism (``parallel/mesh.py``): a one-rank NCCL group
+   on the card (``all_reduce_mean`` of the full-width generator's gradients
+   run through NCCL and timed; two full-width stage-1 steps with the group
+   up bit-identical to the same steps with none, cuDNN held deterministic
+   for both); two ranks sharing the card over gloo (``tools/dp_check.py``'s
+   ``card`` preset: one stage-1 step and one G+D step at 24 a rank against
+   the single-process step at 48 on the same crops and draws, 2 RRDBs x 64,
+   D 64, VGG19 to conv5_4, f32, TF32 off: losses and grad norms within 1e-4
+   relative, both ranks' parameters, EMA and D ``u`` the same bits), then the
+   stage-1 CLI at full width as two ranks, each in its own working
+   directory, for one epoch and again with ``--resume auto`` (both ranks
+   print the resumed epoch, rank 1 writes no checkpoint); the draws of the
+   global batch against a rank's (batch 48 and 24, timed); and tiled serving
+   over two replicas on the one card (``devices=[cuda:0, cuda:0]``) on the
+   wide image against one device: f32 the same bits, bf16 within the seam
+   bound and 40 dB of the one-device output, the RDB kernel's launches
+   counted;
+13. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
@@ -114,6 +131,7 @@ off, the degradation with PyTorch's defaults.  Needs one GPU and no network.
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import math
@@ -147,10 +165,11 @@ from real_esrgan_tpu_torch.ops.mm_probe import (
     mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain, mm_resident_plan,
 )
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
+from real_esrgan_tpu_torch.parallel import mesh
 from real_esrgan_tpu_torch.scripts import eval_pair, make_degraded_eval
 from real_esrgan_tpu_torch.serve import SRPipeline
-from real_esrgan_tpu_torch.tools import conv_exp
-from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
+from real_esrgan_tpu_torch.tools import conv_exp, dp_check
+from real_esrgan_tpu_torch.train.checkpoint import load_checkpoint, load_generator_params
 from real_esrgan_tpu_torch.utils.imgio import load_image_rgb, read_png, write_png
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -237,6 +256,21 @@ TRAIN_CARD_CPU_REL = 1e-4
 GAN_WARMUP, GAN_TIMED = 3, 8
 GAN_CARD_CPU_REL = 1e-4
 NPZ_PSNR_DB = 40.0
+# data parallelism: two ranks against one process on the same crops and
+# draws, held as the card against the CPU (f32, TF32 off); each two-rank
+# launch ends within DDP_TIMEOUT seconds; the CLI's two ranks run at full
+# width, one step an epoch at 24 a rank
+DDP_REL = TRAIN_CARD_CPU_REL
+DDP_TIMEOUT = 400.0
+DDP_BATCHES = (24, 48)
+DDP_CLI = """
+import sys
+from real_esrgan_tpu_torch import train_realesrnet as trainer
+from real_esrgan_tpu_torch.parallel.mesh import process_group
+with process_group("gloo"):  # NCCL refuses two ranks on one device
+    for more in ([], ["--epochs", "2", "--resume", "auto"]):
+        trainer.main(trainer.build_parser().parse_args(sys.argv[1:] + more))
+"""
 
 
 def check(ok: bool, what: str) -> None:
@@ -1789,6 +1823,257 @@ def drive_gan(tree_sr: np.ndarray, gpu: str) -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def launch_names(**names):
+    """JAX's launch names set in this process's environment for the block."""
+    saved = {k: os.environ.get(k) for k in names}
+    os.environ.update(names)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def full_width_steps(hr: torch.Tensor):
+    """Two stage-1 steps at full width (23 RRDBs, 64 channels, bf16, remat)
+    from seeded weights on ``hr``: (state, ms a step, losses)."""
+    from real_esrgan_tpu_torch.configuration import ModelConfig, TrainConfig
+    from real_esrgan_tpu_torch.train import esrnet
+
+    cfg = TrainConfig()
+    model = esrnet.build_generator(ModelConfig(), cfg, "cuda",
+                                   generator=torch.Generator().manual_seed(0))
+    opt = esrnet.build_optimizer(cfg, 1000)
+    step = esrnet.make_train_step(
+        model, opt, DEGRADE_GEO, degrade_cfg.KernelSynthesisConfig(),
+        degrade_cfg.DegradationConfig(), cfg.ema_decay, seed=cfg.seed,
+        reject_limit=cfg.grad_reject_limit, rollback_after=cfg.rollback_after,
+        reject_mult=cfg.grad_reject_mult, clamp_mode=cfg.train_clamp)
+    state, ms, losses = esrnet.init_state(model, opt), [], []
+    for flags in ((False, False), (True, True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, hr, *flags)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return state, ms, losses
+
+
+def ddp_nccl(gpu: str) -> None:
+    """A one-rank NCCL group on cuda:0, joined from JAX's launch names: the
+    full-width generator's gradients through ``all_reduce_mean`` (forced,
+    so NCCL runs at world size 1), and two full-width stage-1 steps that
+    must be the same bits as with no group.  cuDNN is held deterministic
+    for both runs, so only the group could tell them apart."""
+    from real_esrgan_tpu_torch.train_realesrnet import SyntheticHRDataset
+
+    data = SyntheticHRDataset(DEGRADE_GEO.hr_size, length=TRAIN_BATCH, seed=0)
+    hr = torch.from_numpy(np.stack([data.load(i, None) for i in range(TRAIN_BATCH)])).cuda()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain, plain_ms, plain_losses = full_width_steps(hr)
+        plain = (plain.params, plain.ema_params)
+        torch.cuda.empty_cache()
+        with launch_names(COORDINATOR_ADDRESS=f"localhost:{dp_check.free_port()}",
+                          NUM_PROCESSES="1", PROCESS_ID="0"):
+            with mesh.process_group() as up:
+                import torch.distributed as dist
+
+                backend = dist.get_backend() if up else None
+                check(up and backend == "nccl" and mesh.world_size() == 1,
+                      f"the one-rank group: up {up}, backend {backend}")
+                reduce = dp_check.run_cases(["all_reduce"], "card", mesh.local_device(),
+                                            "")["all_reduce"]
+                group, group_ms, group_losses = full_width_steps(hr)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(plain, (group.params, group.ema_params))
+               for k in a)
+    emit(ddp_nccl={"card": gpu, "backend": backend, "world_size": 1,
+                   "all_reduce_ms": reduce["ms"], "all_reduce_elements": reduce["elements"],
+                   "all_reduce_tensors": reduce["tensors"],
+                   "all_reduce_mean_unchanged": reduce["mean_is_one"],
+                   "model": "23 RRDBs, 64 channels, bf16, remat", "batch": TRAIN_BATCH,
+                   "step_ms_no_group": plain_ms, "step_ms_group": group_ms,
+                   "loss_no_group": plain_losses, "loss_group": group_losses,
+                   "params_and_ema_same_bits": same, "cudnn_deterministic": True})
+    check(reduce["mean_is_one"], "all_reduce_mean over one NCCL rank changed its input")
+    check(same, "two stage-1 steps under a one-rank group differ from the same steps without")
+
+
+def ddp_draws(gpu: str) -> None:
+    """The draws of the global batch of 48 against a rank's 24, as each rank
+    draws them: ms of ``draw_degradation`` on the card at the trainer's
+    geometry with both up flags (the 608 canvas), and the normals drawn."""
+    from real_esrgan_tpu_torch.ops.degradation import draw_degradation
+
+    record = {"card": gpu, "geometry": "hr 400 -> crop 256, up1 and up2"}
+    for batch in DDP_BATCHES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        host = torch.Generator().manual_seed(0)
+        draw = lambda: draw_degradation(  # noqa: E731
+            gen, batch, DEGRADE_GEO, degrade_cfg.KernelSynthesisConfig(),
+            degrade_cfg.DegradationConfig(), True, True, host_generator=host, device="cuda")
+        draws = draw()
+        record[f"batch_{batch}_ms"] = time_ms(draw, 5)
+        record[f"batch_{batch}_normals"] = sum(
+            t.numel() for n in (draws.noise1, draws.noise2) for t in (n.normal, n.normal_gray))
+    emit(ddp_draws=record)
+
+
+def ddp_gloo_shared_card(gpu: str) -> None:
+    """Two ranks on the one card over gloo (NCCL refuses two ranks on one
+    device), launched with JAX's names: ``tools/dp_check.py``'s ``card``
+    steps against the same steps in this process on the whole batch, then
+    the stage-1 CLI as two ranks for one epoch and again with ``--resume
+    auto``."""
+    t0 = time.perf_counter()
+    cases = ["esrnet_step", "gan_step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        single = dp_check.run_cases(cases, "card", torch.device("cuda"), tmp)
+        torch.cuda.empty_cache()
+        runs = dp_check.launch_local(
+            ["-m", "real_esrgan_tpu_torch.tools.dp_check", "--preset", "card", "--backend",
+             "gloo", "--cases", ",".join(cases + ["all_reduce"]), "--out", tmp], 2, DDP_TIMEOUT)
+        for r, (rc, out) in enumerate(runs):
+            check(rc == 0 and f"DP_CHECK_OK rank={r}" in out,
+                  f"dp_check rank {r} exited {rc}:\n{out[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True)
+                 for r in range(2)]
+    rel, same = {}, {}
+    for case in cases:
+        for m, ref in zip(ranks[0][case]["metrics"], single[case]["metrics"]):
+            for key in ("loss", "grad_norm", *GAN_METRICS):
+                if key in ref:
+                    rel[f"{case}.{key}"] = abs(m[key] - ref[key]) / max(abs(ref[key]), 1e-12)
+        for key in ("params", "ema", "d_params", "d_stats"):
+            if key in ranks[0][case]:
+                a, b = ranks[0][case][key], ranks[1][case][key]
+                same[f"{case}.{key}"] = all(torch.equal(a[k], b[k]) for k in a)
+    checks_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        cwds = [os.path.join(tmp, f"rank{r}") for r in range(2)]
+        for cwd in cwds:
+            os.makedirs(cwd)
+        cli = dp_check.launch_local(
+            ["-c", DDP_CLI, "--synthetic", "--epochs", "1", "--batch-size", str(TRAIN_BATCH),
+             "--steps-per-epoch", "1", "--no-tensorboard", "--exp-name", "ddp"],
+            2, DDP_TIMEOUT, cwds=cwds)
+        rank1_results = os.path.exists(os.path.join(cwds[1], "results"))
+        tree = load_checkpoint(os.path.join(cwds[0], "results", "ddp", "g_last"))
+    local = TRAIN_BATCH // 2
+    cli_ok = [rc == 0 and f"rank {r} of 2" in out and "at epoch 1." in out
+              and f"1 steps/epoch, 2 ranks of {local}" in out for r, (rc, out) in enumerate(cli)]
+    emit(ddp_gloo_shared_card={
+        "card": gpu, "backend": "gloo", "world_size": 2, "preset": "card",
+        "model": "2 RRDBs x 64, D 64, VGG19 to conv5_4, f32, TF32 off",
+        "global_batch": dp_check.PRESETS["card"].batch, "rel_vs_single": rel,
+        "bound_rel": DDP_REL, "ranks_same_bits": same,
+        "step_ms_ranks": {c: [r[c]["step_ms"] for r in ranks] for c in cases},
+        "step_ms_single": {c: single[c]["step_ms"] for c in cases},
+        "all_reduce_ms_gloo": [r["all_reduce"]["ms"] for r in ranks],
+        "cli": {"model": "23 RRDBs, 64 channels, bf16, remat", "batch": TRAIN_BATCH,
+                "ranks_ok": cli_ok, "rank1_wrote_results": rank1_results,
+                "g_last": {"epoch": tree["epoch"], "step": tree["step"]},
+                "seconds": time.perf_counter() - t1},
+        "checks_seconds": checks_s})
+    for key, value in rel.items():
+        check(value <= DDP_REL, f"two ranks against one process: {key} off by {value:.3g}")
+    check(all(same.values()), f"the two ranks' state differs: {same}")
+    for r, ok in enumerate(cli_ok):
+        check(ok, f"the two-rank stage-1 CLI, rank {r}:\n{cli[r][1][-3000:]}")
+    check(not rank1_results, "rank 1 of the CLI wrote results")
+    check((tree["epoch"], tree["step"]) == (2, 2),
+          f"the two-rank CLI's g_last at epoch {tree['epoch']}, step {tree['step']}")
+
+
+def tiled_devices(wide: np.ndarray, outputs: dict, gpu: str) -> dict:
+    """Tiled serving over two replicas on the one card against one device
+    on the wide image (4 tiles of 528/8/8, one batch of 8 split in two
+    chunks of 2): f32 the same bits, bf16 within the seam bound of a
+    whole-image forward and NPZ_PSNR_DB of the one-device output; the RDB
+    kernel's launches counted from 0; one forward of a replica under CUDA's
+    sync debug mode, which raises if it waits on the host, and the host's
+    time to launch a tile's forward beside the device's time to run it.
+    Returns the launches by dtype."""
+    devices = [torch.device("cuda", 0)] * 2
+    launches, record = {}, {"card": gpu, "devices": [str(d) for d in devices]}
+    for dtype in (torch.bfloat16, torch.float32):
+        pipe = SRPipeline(WEIGHTS, bfloat16=dtype == torch.bfloat16, devices=devices)
+        core = pipe.tile - 2 * pipe.tile_overlap
+        n_tiles = math.ceil(wide.shape[0] / core) * math.ceil(wide.shape[1] / core)
+        chunks = sum(min(len(devices), n_tiles - start)
+                     for start in range(0, n_tiles, pipe.tile_batch))
+        fused_rdb.launches = 0
+        t0 = time.perf_counter()
+        out = pipe.upscale(wide)
+        seconds = time.perf_counter() - t0
+        launches[dtype] = fused_rdb.launches
+        one = outputs[dtype]["wide_tiled"]
+        name = DTYPE_NAME[dtype]
+        # a replica's forward must not wait on the host, or the devices could
+        # not overlap: CUDA's sync debug mode raises on any synchronizing call
+        tiles = torch.from_numpy(np.ascontiguousarray(wide[:pipe.tile, :pipe.tile]))[None].cuda()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                pipe.models[1](tiles)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        # the host's time to launch one tile's forward against the device's
+        # time to run it: the host is free for the next device that long
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pipe.models[1](tiles)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        forward_ms = (time.perf_counter() - t0) * 1e3
+        record[name] = {"seconds": seconds, "fused_rdb_launches": launches[dtype],
+                        "forward_syncs_host": False, "tile_forward_enqueue_ms": enqueue_ms,
+                        "tile_forward_ms": forward_ms,
+                        "chunks": chunks, "same_bits_as_one_device": bool(np.array_equal(out, one)),
+                        "max_abs_vs_one_device": float(np.abs(out - one).max()),
+                        "psnr_vs_one_device_db": psnr(out, one)}
+        check(launches[dtype] == RDBS_PER_FORWARD * chunks,
+              f"{name} tiled over two replicas launched fused_rdb {launches[dtype]} times, "
+              f"expected {RDBS_PER_FORWARD * chunks}")
+        check(out.shape == one.shape and bool(np.isfinite(out).all()), f"{name} tiled output")
+        if dtype == torch.float32:
+            check(record[name]["same_bits_as_one_device"],
+                  "f32 tiled output over two replicas differs from one device's")
+        else:
+            record[name]["seam"] = seam_error(pipe, wide, out)
+            for stat, limit in SEAM_LIMIT.items():
+                check(record[name]["seam"]["interior_8bit"][stat] <= limit,
+                      f"bf16 two-replica interior seam {stat} exceeds {limit}")
+            check(record[name]["psnr_vs_one_device_db"] >= NPZ_PSNR_DB,
+                  "bf16 tiled output over two replicas against one device's")
+        del pipe
+        torch.cuda.empty_cache()
+    emit(tiled_devices=record)
+    return launches
+
+
+def drive_ddp(wide: np.ndarray, outputs: dict, gpu: str) -> dict:
+    """The data-parallel phase; returns fused_rdb's launches of its tiled
+    requests by dtype."""
+    t0 = time.perf_counter()
+    ddp_nccl(gpu)
+    ddp_draws(gpu)
+    ddp_gloo_shared_card(gpu)
+    launches = tiled_devices(wide, outputs, gpu)
+    emit(ddp_seconds=time.perf_counter() - t0)
+    return launches
+
+
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
@@ -1916,6 +2201,7 @@ def main() -> int:
     train_launches = drive_train(tree_sr, gpu)
     drive_loaders(tree_sr, gpu)
     gan_launches = drive_gan(tree_sr, gpu)
+    ddp_launches = drive_ddp(wide, outputs, gpu)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)
@@ -1925,8 +2211,10 @@ def main() -> int:
     check(f32_err <= 1e-4, f"f32 crop differs from the JAX golden output by {f32_err}")
     check(bf16_psnr >= 40.0, f"bf16 crop PSNR {bf16_psnr:.2f} dB against the JAX golden output")
 
-    trainers = {torch.bfloat16: {"train_validation": train_launches, **gan_launches},
-                torch.float32: {"train_validation": 0, "gan_validation": 0, "npz_snapshot": 0}}
+    trainers = {torch.bfloat16: {"train_validation": train_launches, **gan_launches,
+                                 "tiled_devices": ddp_launches[torch.bfloat16]},
+                torch.float32: {"train_validation": 0, "gan_validation": 0, "npz_snapshot": 0,
+                                "tiled_devices": ddp_launches[torch.float32]}}
     emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],
                                              **trainers[d]}
                              for d in launches})

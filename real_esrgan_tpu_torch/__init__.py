@@ -12,10 +12,9 @@ __version__ = "0.1.0"
 
 
 def resolve_device(cpu: bool = False) -> torch.device:
-    """``cpu`` when asked for, else the first CUDA device; raises without CUDA."""
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: pass device='cpu' (or --cpu) "
-                           "to run on the CPU")
-    return torch.device("cuda")
+    """``cpu`` when asked for, else this rank's CUDA device
+    (``parallel.mesh.local_device``: the current one without a process
+    group); raises without CUDA."""
+    from real_esrgan_tpu_torch.parallel.mesh import local_device
+
+    return local_device(cpu)

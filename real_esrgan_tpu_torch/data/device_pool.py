@@ -14,6 +14,12 @@ epoch``, the ragged tail dropped.  The pool is one deterministic decode, so
 it takes only sets whose images are all ``hr_size``-square, where the host
 loaders' random crop is the whole image and nothing is lost; the geometric
 augmentation stays random, on the device, inside the degradation.
+
+Data parallel (one rank a GPU): every rank holds the whole pool, as the JAX
+loader replicates it over its mesh, draws the same global order and gathers
+its own ``shard_slice`` of each global batch, so the ranks' batches together
+are the one-GPU batch, and 8 bytes an image of the rank's share cross to
+each card a step.
 """
 
 from __future__ import annotations
@@ -22,6 +28,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 import torch
+
+from real_esrgan_tpu_torch.parallel.mesh import shard_slice
 
 
 def build_pool_array(dataset, hr_size: int, budget_bytes: int) -> Optional[np.ndarray]:
@@ -45,17 +53,20 @@ def build_pool_array(dataset, hr_size: int, budget_bytes: int) -> Optional[np.nd
 
 
 class DevicePoolLoader:
-    """Epoch iterator over (batch, hr, hr, 3) uint8 batches gathered on
-    ``device`` from the pool uploaded there once.  Single-process.
+    """Epoch iterator over uint8 batches gathered on ``device`` from the pool
+    uploaded there once: rank ``rank`` of ``world`` takes its (batch_size /
+    world, hr, hr, 3) share of each global batch of ``batch_size``.
 
     ``index_bytes`` counts the bytes of the index vectors sent to the device,
     the only host-to-device traffic a step."""
 
-    def __init__(self, pool: np.ndarray, batch_size: int, seed: int = 0, device="cuda"):
+    def __init__(self, pool: np.ndarray, batch_size: int, seed: int = 0, device="cuda",
+                 rank: int = 0, world: int = 1):
         self.batch_size = batch_size
         self.seed = seed
         self.epoch = 0
         self.device = torch.device(device)
+        self.share = shard_slice(batch_size, rank, world)
         self._n = pool.shape[0]
         self.pool = torch.from_numpy(np.ascontiguousarray(pool)).to(self.device)
         self.index_bytes = 0
@@ -67,7 +78,8 @@ class DevicePoolLoader:
         order = np.random.default_rng(self.seed + self.epoch).permutation(self._n)
         self.epoch += 1
         for start in range(0, len(self) * self.batch_size, self.batch_size):
-            idx = torch.from_numpy(order[start:start + self.batch_size].astype(np.int64))
+            batch = order[start:start + self.batch_size]
+            idx = torch.from_numpy(batch[self.share].astype(np.int64))
             if self.device.type == "cuda":
                 idx = idx.pin_memory()  # so the copy does not wait for the stream
             self.index_bytes += idx.nbytes

@@ -22,6 +22,8 @@ from typing import Iterable, Iterator
 import numpy as np
 import torch
 
+from real_esrgan_tpu_torch.parallel.mesh import local_device
+
 
 class CPUPrefetcher:
     """The loader's batches as they come, through ``next()`` (None at the end
@@ -42,14 +44,15 @@ class CPUPrefetcher:
 
 
 class DevicePrefetcher:
-    """Yields the loader's batches as uint8 tensors on ``device``.
+    """Yields the loader's batches as uint8 tensors on ``device``, by default
+    the rank's own GPU (``parallel.mesh.local_device``).
 
     ``h2d_bytes`` counts the bytes this prefetcher copied to the device (0
     for batches that were there already)."""
 
-    def __init__(self, iterable: Iterable, device, buffer_size: int = 2):
+    def __init__(self, iterable: Iterable, device=None, buffer_size: int = 2):
         self.iterable = iterable
-        self.device = torch.device(device)
+        self.device = torch.device(device) if device is not None else local_device()
         self.buffer_size = buffer_size
         self.h2d_bytes = 0
 

@@ -4,7 +4,9 @@
         --output_path sr.png --weights_path assets/inenv10_esrnet_ema.npz
 
 Same flags as the JAX CLI.  Runs on CUDA; ``--cpu`` runs on the CPU instead,
-and without ``--cpu`` a machine with no CUDA device is an error.
+and without ``--cpu`` a machine with no CUDA device is an error.  With
+``--tile`` each tile batch is spread over every visible GPU, one generator
+replica a GPU, as the JAX CLI shards it over its mesh.
 """
 
 from __future__ import annotations
@@ -15,9 +17,9 @@ import time
 
 import torch
 
-from real_esrgan_tpu_torch import resolve_device
-from real_esrgan_tpu_torch.models import Generator
+from real_esrgan_tpu_torch.parallel.mesh import local_devices
 from real_esrgan_tpu_torch.parallel.tiling import tiled_upscale
+from real_esrgan_tpu_torch.serve import generator_replicas, no_grad_forward
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
 from real_esrgan_tpu_torch.utils.imgio import (
     array_to_image, image_to_array, load_image_rgb, save_image_rgb,
@@ -25,30 +27,31 @@ from real_esrgan_tpu_torch.utils.imgio import (
 
 
 def main(args) -> str:
-    device = resolve_device(args.cpu)
-    model = Generator(upscale_factor=args.upscale_factor,
-                      dtype=torch.bfloat16 if args.bfloat16 else torch.float32,
-                      device=device).eval()
+    # the tiled path spreads over every GPU; the whole image runs on the first
+    devices = [torch.device("cpu")] if args.cpu else local_devices()
+    if args.tile <= 0:
+        devices = devices[:1]
+    device = devices[0]
+    state_dict = None
     if args.weights_path and os.path.exists(args.weights_path):
-        model.load_state_dict(load_generator_params(args.weights_path))
+        state_dict = load_generator_params(args.weights_path)
         print(f"Loaded `{args.weights_path}` weights.")
     else:
         print("WARNING: no weights file found — using random initialization.")
+    models = generator_replicas(devices, state_dict, upscale_factor=args.upscale_factor,
+                                dtype=torch.bfloat16 if args.bfloat16 else torch.float32)
 
     lr_image = load_image_rgb(args.inputs_path)
-
-    @torch.no_grad()
-    def apply_fn(batch):
-        return model(batch)
+    forwards = [no_grad_forward(m) for m in models]
 
     t0 = time.time()
     if args.tile > 0:
-        sr_np = tiled_upscale(apply_fn, lr_image, scale=args.upscale_factor,
+        sr_np = tiled_upscale(forwards, lr_image, scale=args.upscale_factor,
                               tile=args.tile, overlap=args.tile_overlap,
-                              tile_batch=args.tile_batch, device=device)
+                              tile_batch=args.tile_batch, devices=devices)
     else:
         batch = torch.from_numpy(image_to_array(lr_image)).to(device)
-        sr_np = apply_fn(batch).cpu().numpy()
+        sr_np = forwards[0](batch).cpu().numpy()
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"SR {lr_image.shape[0]}x{lr_image.shape[1]} -> "
           f"{sr_np.shape[-3]}x{sr_np.shape[-2]} in {time.time() - t0:.3f}s on {name}")

@@ -26,7 +26,7 @@ the stage-2 content loss's feature space where no VGG19 weights exist.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -126,6 +126,19 @@ _SUBPIX_T = (
 )
 
 
+# _SUBPIX_T as tensors by (dtype, device), made once: a tensor made from
+# Python numbers on a GPU is a copy from pageable memory, which waits for the
+# device, and a forward that waits cannot overlap with another device's
+_SUBPIX_TENSORS: Dict[Tuple[torch.dtype, torch.device], List[torch.Tensor]] = {}
+
+
+def _subpix_transfer(dtype: torch.dtype, device: torch.device) -> List[torch.Tensor]:
+    key = (dtype, device)
+    if key not in _SUBPIX_TENSORS:
+        _SUBPIX_TENSORS[key] = [torch.tensor(m, dtype=dtype, device=device) for m in _SUBPIX_T]
+    return _SUBPIX_TENSORS[key]
+
+
 def _subpixel_upconv(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """nearest-x2-upsample -> 3x3 conv -> LeakyReLU, as one low-res conv with
@@ -133,7 +146,7 @@ def _subpixel_upconv(x: torch.Tensor, weight: torch.Tensor,
     shuffle, exactly as the JAX ``_subpixel_upconv`` computes it."""
     cout = weight.shape[0]
     hwio = weight.permute(2, 3, 1, 0)
-    t = [torch.tensor(m, dtype=weight.dtype, device=weight.device) for m in _SUBPIX_T]
+    t = _subpix_transfer(weight.dtype, weight.device)
     w4 = torch.cat([torch.einsum("ru,uvio,cv->rcio", ta, hwio, tb)
                     for ta in t for tb in t], dim=-1)
     y = F.conv2d(x, w4.permute(3, 2, 0, 1).to(x.dtype), padding=1)

@@ -116,6 +116,14 @@ def _map_tensors(obj, fn):
     return obj
 
 
+def slice_draws(draws: DegradationDraws, start: int, stop: int) -> DegradationDraws:
+    """The draws of samples ``start:stop``: every per-sample tensor sliced,
+    the per-batch choices kept.  A data-parallel rank draws the global
+    batch's draws and applies its own slice, so the ranks together degrade
+    their batch as one device degrades it whole."""
+    return _map_tensors(draws, lambda t: t[start:stop])
+
+
 def draws_to_arrays(draws: DegradationDraws) -> dict:
     """The draws as a flat dict of numpy arrays (``np.savez``'s input),
     keyed by dotted field names; the orientation's three tensors are

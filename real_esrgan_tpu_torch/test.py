@@ -7,8 +7,10 @@ Super-resolves every image of ``--lr_dir`` in natural order, writes the
 outputs to ``--sr_dir`` and prints each image's NIQE and the mean clamped to
 100; where ``--hr_dir`` holds a same-named ground truth of the output's
 shape, PSNR is printed as well.  Same flags as the JAX CLI, plus ``--cpu``:
-without it the run needs a CUDA device.  The defaults are the literals of
-the repository's test configuration.
+without it the run needs a CUDA device, and a tiled image spreads its tile
+batches over every visible GPU.  A distributed launch (``parallel/mesh.py``)
+joins its process group first, as the JAX CLI does.  The defaults are the
+literals of the repository's test configuration.
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
-from real_esrgan_tpu_torch import resolve_device
 from real_esrgan_tpu_torch.metrics.niqe import DEFAULT_MODEL_PATH, NIQE
+from real_esrgan_tpu_torch.parallel.mesh import local_devices, process_group
 from real_esrgan_tpu_torch.serve import SRPipeline
 from real_esrgan_tpu_torch.utils.imgio import (
     array_to_image, load_image_rgb, natsorted_files, save_image_rgb,
@@ -34,11 +37,17 @@ def psnr_db(sr: np.ndarray, hr: np.ndarray) -> float:
 
 
 def main(args) -> float:
-    device = resolve_device(args.cpu)
+    with process_group("gloo" if args.cpu else None):
+        return evaluate(args)
+
+
+def evaluate(args) -> float:
+    devices = [torch.device("cpu")] if args.cpu else local_devices()
+    device = devices[0]
     have_weights = bool(args.model_path and os.path.exists(args.model_path))
     pipeline = SRPipeline(weights_path=args.model_path if have_weights else "",
                           upscale_factor=args.upscale_factor, bfloat16=args.bfloat16,
-                          device=device)
+                          devices=devices)
     if have_weights:
         print(f"Loaded `{args.model_path}` weights.")
     else:

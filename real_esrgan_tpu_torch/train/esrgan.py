@@ -14,6 +14,13 @@ Per step, as the JAX trainer's fused step:
   Adam step with no rollback (``rollback_after=0``, D's own params in the
   EMA's place).
 
+Data parallel, as the stage-1 step (``train/esrnet.py``): each rank
+degrades its slice of the global batch's draws; ``update`` averages G's
+gradients with G's loss terms, then D's gradients with D's loss and
+probabilities, over the ranks before each guard.  D's spectral state needs
+no collective: each power iteration is a function of D's weights and the
+previous ``u`` alone, both equal on every rank, so it stays equal.
+
 The spectral state advances on every D forward: D(sr) in the G-step, then
 D(hr) and D(sr.detach()) in the D-step, three power iterations a step, as
 the reference's ``spectral_norm`` does on every train-mode forward.  The
@@ -45,8 +52,9 @@ from real_esrgan_tpu_torch.models.rrdbnet import Generator
 from real_esrgan_tpu_torch.models.vgg import ContentLoss, VGG19Features
 from real_esrgan_tpu_torch.ops.usm import gaussian_kernel_1d, usm_sharpen
 from real_esrgan_tpu_torch.train.esrnet import (
-    build_generator, degrade_for_step, train_forward_model,
+    build_generator, degrade_for_step, mean_over_ranks, train_forward_model,
 )
+from real_esrgan_tpu_torch.parallel.mesh import rank, world_size
 from real_esrgan_tpu_torch.train.guard import GuardState, guard_init, guarded_update
 from real_esrgan_tpu_torch.train.optim import (
     AdamState, ClippedAdam, apply_updates, global_norm,
@@ -137,13 +145,15 @@ def make_gan_train_step(generator: Generator, discriminator: UNetDiscriminator,
     usm_kernel = gaussian_kernel_1d(dcfg.usm_radius, 0.0)
     train_generator = train_forward_model(generator, cfg.train_clamp)
     content_loss = ContentLoss(backbone, cfg.content_weights)
+    rank_, world = rank(), world_size()
 
     def d_forward(d_params, d_stats, x):
         return functional_call(discriminator, d_params, (x, d_stats), {"update_stats": True})
 
     def degrade_batch(state: GanTrainState, hr_uint8: torch.Tensor, up1: bool = False,
                       up2: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        return degrade_for_step(state.step, hr_uint8, geo, kcfg, dcfg, cfg.seed, up1, up2)
+        return degrade_for_step(state.step, hr_uint8, geo, kcfg, dcfg, cfg.seed, up1, up2,
+                                rank_, world)
 
     def g_loss_and_grads(state: GanTrainState, lr_b: torch.Tensor, hr_b: torch.Tensor
                          ) -> Tuple[Tensors, Tensors]:
@@ -201,12 +211,15 @@ def make_gan_train_step(generator: Generator, discriminator: UNetDiscriminator,
     def update(state: GanTrainState, lr_b: torch.Tensor, hr_b: torch.Tensor
                ) -> Tuple[GanTrainState, Dict[str, torch.Tensor]]:
         g_grads, g_aux = g_loss_and_grads(state, lr_b, hr_b)
-        g_params, g_ema, g_opt, g_guard, g_info = g_apply(state, g_grads)
         sr, d_stats = g_aux.pop("sr"), g_aux.pop("d_stats")
+        g_grads, g_aux = mean_over_ranks(g_grads, g_aux)
+        g_params, g_ema, g_opt, g_guard, g_info = g_apply(state, g_grads)
         d_grads, d_aux = d_loss_and_grads(state.d_params, d_stats, sr, hr_b)
+        d_stats = d_aux.pop("d_stats")
+        d_grads, d_aux = mean_over_ranks(d_grads, d_aux)
         d_params, d_opt, d_guard, d_info = d_apply(state, d_grads)
         new_state = GanTrainState(step=state.step + 1, g_params=g_params, g_ema=g_ema,
-                                  g_opt=g_opt, d_params=d_params, d_stats=d_aux.pop("d_stats"),
+                                  g_opt=g_opt, d_params=d_params, d_stats=d_stats,
                                   d_opt=d_opt, g_guard=g_guard, d_guard=d_guard)
         metrics = {**g_aux, **d_aux}
         metrics.update({f"g_{k}": v for k, v in g_info.items()})

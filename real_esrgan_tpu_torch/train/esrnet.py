@@ -13,6 +13,16 @@ A step is two parts:
   (raw, straight-through or hard clamped: ``train_forward_model``), its
   gradients, and the guarded Adam step with the EMA (``train/guard.py``).
 
+Data parallel (``parallel/mesh.py``: one rank a GPU, each with the whole
+state): the step's ``hr_uint8`` is the rank's slice of the global batch.
+Each rank draws the global batch's degradation and applies its own slice
+(``ops/degradation.py::slice_draws``), and ``update`` averages the gradients
+and the loss over the ranks (``all_reduce_mean``) before the guard, so its
+grad norm and its reject and rollback decisions are the global ones, the
+same on every rank, and the ranks' parameters stay equal.  The step over R
+ranks is the single-device step on the global batch.  At world size 1 both
+are no-ops.
+
 ``TrainState.step`` counts batches and is a host integer, since it advances
 on every batch whatever the data; the optimizer's count advances only on
 accepted steps and lives on the device, as does everything the guard reads.
@@ -38,7 +48,10 @@ from real_esrgan_tpu_torch.configuration import (
 )
 from real_esrgan_tpu_torch.models.ema import ema_init, ema_update
 from real_esrgan_tpu_torch.models.rrdbnet import Generator
-from real_esrgan_tpu_torch.ops.degradation import degrade, generator_seed
+from real_esrgan_tpu_torch.ops.degradation import (
+    apply_degradation, draw_degradation, generator_seed, slice_draws,
+)
+from real_esrgan_tpu_torch.parallel.mesh import all_reduce_mean, rank, world_size
 from real_esrgan_tpu_torch.train.guard import GuardState, guard_init, guarded_update
 from real_esrgan_tpu_torch.train.optim import (
     AdamState, ClippedAdam, apply_updates, global_norm,
@@ -112,15 +125,33 @@ def init_state(model: Generator, opt: ClippedAdam) -> TrainState:
 
 def degrade_for_step(step: int, hr_uint8: torch.Tensor, geo: PipelineGeometry,
                      kcfg: KernelSynthesisConfig, dcfg: DegradationConfig, seed: int,
-                     up1: bool = False, up2: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                     up1: bool = False, up2: bool = False, rank_: int = 0,
+                     world: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
     """The training batch of step ``step``: ``degrade`` under ``no_grad``,
-    its draws made on ``hr_uint8``'s device from ``(seed + 1, step)``."""
+    its draws made on ``hr_uint8``'s device from ``(seed + 1, step)``.
+    ``hr_uint8`` is rank ``rank_``'s slice of a global batch ``world`` times
+    its size: the draws are the global batch's, and the rank applies its
+    slice of them.  (The exact Poisson sampler, ``poisson_approx`` off, draws
+    its counts from the rank's generator as it goes, so only the default
+    approximate sampler gives the global batch's noise.)"""
     s = generator_seed(seed + 1, step)
     generator = torch.Generator(device=hr_uint8.device).manual_seed(s)
     host = torch.Generator().manual_seed(s)
+    batch = hr_uint8.shape[0]
     with torch.no_grad():
-        return degrade(generator, hr_uint8, geo, kcfg, dcfg, augment=True, up1=up1, up2=up2,
-                       host_generator=host)
+        draws = draw_degradation(generator, batch * world, geo, kcfg, dcfg, up1, up2,
+                                 augment=True, host_generator=host, device=hr_uint8.device)
+        draws = slice_draws(draws, rank_ * batch, (rank_ + 1) * batch)
+        return apply_degradation(hr_uint8, draws, geo, kcfg, dcfg, up1, up2, generator)
+
+
+def mean_over_ranks(grads: Tensors, terms: Tensors) -> Tuple[Tensors, Tensors]:
+    """The gradients and the 0-d loss terms averaged over the ranks in one
+    ``all_reduce_mean``; returned as they are at world size 1."""
+    reduced = all_reduce_mean({**{f"grad/{k}": v for k, v in grads.items()},
+                               **{f"term/{k}": v for k, v in terms.items()}})
+    return ({k: reduced[f"grad/{k}"] for k in grads},
+            {k: reduced[f"term/{k}"] for k in terms})
 
 
 def make_train_step(model: Generator, opt: ClippedAdam, geo: PipelineGeometry,
@@ -136,12 +167,17 @@ def make_train_step(model: Generator, opt: ClippedAdam, geo: PipelineGeometry,
     optimizer step and the EMA.  ``model`` is the training model (``build_generator``);
     ``seed`` is the run's seed, the draws use ``seed + 1``.  metrics hold 0-d
     device tensors: ``loss``, the pre-clip ``grad_norm`` and, with the guard,
-    ``lr_scale``, ``rejected`` and ``rollback``."""
+    ``lr_scale``, ``rejected`` and ``rollback``; under data parallelism (the
+    process group up when the step is made) ``update`` averages the
+    gradients and the loss over the ranks first, and ``loss_and_grads``
+    stays the rank's own."""
     train_model = train_forward_model(model, clamp_mode)
+    rank_, world = rank(), world_size()
 
     def degrade_batch(state: TrainState, hr_uint8: torch.Tensor, up1: bool = False,
                       up2: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        return degrade_for_step(state.step, hr_uint8, geo, kcfg, dcfg, seed, up1, up2)
+        return degrade_for_step(state.step, hr_uint8, geo, kcfg, dcfg, seed, up1, up2,
+                                rank_, world)
 
     def loss_and_grads(params: Tensors, lr_batch: torch.Tensor, hr_batch: torch.Tensor
                        ) -> Tuple[torch.Tensor, Tensors]:
@@ -168,8 +204,9 @@ def make_train_step(model: Generator, opt: ClippedAdam, geo: PipelineGeometry,
     def update(state: TrainState, lr_batch: torch.Tensor, hr_batch: torch.Tensor
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         loss, grads = loss_and_grads(state.params, lr_batch, hr_batch)
+        grads, terms = mean_over_ranks(grads, {"loss": loss})
         new_state, info = apply(state, grads)
-        return new_state, {"loss": loss, **info}
+        return new_state, {**terms, **info}
 
     def step(state: TrainState, hr_uint8: torch.Tensor, up1: bool = False, up2: bool = False):
         """up1/up2: the host-drawn per-batch resize-upscale flags."""

@@ -29,6 +29,12 @@ The flags are the root script's, plus ``--cpu``; without CUDA and without
 stage-1 trainer's (``train_realesrnet.make_train_loader``); the ``grain``
 stream's position is saved at every saving epoch and restored with
 ``--resume-g``.
+
+Data parallel as the stage-1 CLI (``torchrun --nproc_per_node=N -m
+real_esrgan_tpu_torch.train_realesrgan ...``, or the JAX launch names):
+``--batch-size`` is the global batch; the lead resolves the ``auto`` paths,
+loads the warm start and both checkpoints, and sends the whole GAN state to
+every rank; only the lead validates and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -43,7 +49,6 @@ import numpy as np
 import torch
 
 from real_esrgan_tpu_torch import config as run_config
-from real_esrgan_tpu_torch import resolve_device
 from real_esrgan_tpu_torch.data import grain_loader
 from real_esrgan_tpu_torch.data.dataset import TrainImageDataset, build_eval_datasets
 from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
@@ -51,6 +56,9 @@ from real_esrgan_tpu_torch.metrics.niqe import NIQE
 from real_esrgan_tpu_torch.models.convert import vgg_state_from_torchvision
 from real_esrgan_tpu_torch.models.ema import ema_init
 from real_esrgan_tpu_torch.models.rrdbnet import TrunkFeatures, trunk_feature_params
+from real_esrgan_tpu_torch.parallel.mesh import (
+    broadcast_pytree, broadcast_string, is_lead, local_device, process_group, rank, world_size,
+)
 from real_esrgan_tpu_torch.train import checkpoint as ckpt_lib
 from real_esrgan_tpu_torch.train.esrgan import (
     GanTrainState, build_models, build_optimizers, init_gan_state, make_gan_train_step,
@@ -60,9 +68,8 @@ from real_esrgan_tpu_torch.train.esrnet import (
 )
 from real_esrgan_tpu_torch.train.guard import guard_from_dict, guard_to_dict
 from real_esrgan_tpu_torch.train_realesrnet import (
-    LOADERS, SyntheticHRDataset, check_storm, failsafe, make_train_loader, restore_opt_state,
-    save_epoch,
-    validate,
+    LOADERS, SyntheticHRDataset, check_storm, failsafe, global_batch, make_train_loader,
+    restore_opt_state, save_epoch, validate,
 )
 from real_esrgan_tpu_torch.utils.meters import AverageMeter, ProgressMeter
 
@@ -141,37 +148,49 @@ def _configure(args):
 
 
 def _resolve_auto(path: str, samples_dir: str, prefix: str) -> str:
+    """``path``, or for ``auto`` the newest checkpoint the lead finds, sent
+    to every rank."""
     if path != "auto":
         return path
-    found = ckpt_lib.find_latest_checkpoint(samples_dir, prefix)
+    found = broadcast_string(ckpt_lib.find_latest_checkpoint(samples_dir, prefix)
+                             if is_lead() else "")
     if not found:
         print(f"--resume-{prefix[0]} auto: no checkpoint found, starting fresh.")
     return found
 
 
 def main(args) -> None:
-    device = resolve_device(args.cpu)
+    with process_group("gloo" if args.cpu else None):
+        train(args)
+
+
+def train(args) -> None:
+    device = local_device(args.cpu)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"Training on {device} (TF32 off for matmul and cuDNN).")
+    world, lead = world_size(), is_lead()
+    print(f"Training on {device}, rank {rank()} of {world} (TF32 off for matmul and cuDNN).")
     geo = run_config.geometry
     kcfg = run_config.kernel_synthesis
     dcfg = run_config.degradation
     model_cfg = run_config.model
     cfg = _configure(args)
-    batch = args.batch_size or cfg.batch_size
+    batch = global_batch(args.batch_size or cfg.batch_size, world)
+    local_batch = batch // world
 
     if args.synthetic:
-        train_ds = SyntheticHRDataset(geo.hr_size, length=args.steps_per_epoch * batch)
+        train_ds = SyntheticHRDataset(geo.hr_size, length=args.steps_per_epoch * local_batch)
         valid_ds, test_ds = [], []
     else:
         train_ds = TrainImageDataset(cfg.train_image_dir, geo.hr_size,
                                      cache_bytes=cfg.decoded_cache_bytes)
         valid_ds, test_ds = build_eval_datasets(cfg.valid_image_dir, cfg.test_lr_image_dir,
                                                 cfg.test_hr_image_dir, geo.crop_size, geo.scale)
-    loader = make_train_loader(train_ds, batch, cfg, geo, device)
+    loader = make_train_loader(train_ds, local_batch, cfg, geo, device,
+                               sharded=not args.synthetic)
     steps_per_epoch = len(loader)
-    print(f"Loaded datasets: {len(train_ds)} train images, {steps_per_epoch} steps/epoch.")
+    print(f"Loaded datasets: {len(train_ds)} train images, {steps_per_epoch} steps/epoch, "
+          f"{world} ranks of {local_batch}.")
 
     generator, discriminator, backbone = build_models(model_cfg, cfg, device)
     g_tx, d_tx = build_optimizers(cfg, steps_per_epoch)
@@ -191,25 +210,35 @@ def main(args) -> None:
 
     samples_dir = os.path.join("samples", cfg.exp_name)
     results_dir = os.path.join("results", cfg.exp_name)
-    start_epoch, best_niqe, warm = 0, 100.0, False
+    start_epoch, best_niqe = 0, 100.0
     resume = args.resume or cfg.resume
     resume_g = _resolve_auto(args.resume_g or cfg.resume_g, samples_dir, "g_epoch_")
     resume_d = _resolve_auto(args.resume_d or cfg.resume_d, samples_dir, "d_epoch_")
-    if resume and os.path.exists(resume):
-        loaded = ckpt_lib.load_generator_params(resume, prefer_ema=False)
-        g_params = {k: v.to(device) for k, v in
-                    ckpt_lib.merge_matching(state.g_params, loaded).items()}
-        state = dataclasses.replace(state, g_params=g_params, g_ema=ema_init(g_params))
-        warm = True
+    # the lead loads from its own disk; every rank then takes its state
+    loaded = {"warm": False, "g": False, "d": False}
+    if lead:
+        if resume and os.path.exists(resume):
+            g_loaded = ckpt_lib.load_generator_params(resume, prefer_ema=False)
+            g_params = {k: v.to(device) for k, v in
+                        ckpt_lib.merge_matching(state.g_params, g_loaded).items()}
+            state = dataclasses.replace(state, g_params=g_params, g_ema=ema_init(g_params))
+            loaded["warm"] = True
+        if resume_g and os.path.exists(resume_g):
+            state, start_epoch, best_niqe = resume_generator(state, resume_g)
+            loaded["g"] = True
+        if resume_d and os.path.exists(resume_d):
+            state = resume_discriminator(state, resume_d)
+            loaded["d"] = True
+    state, start_epoch, best_niqe, loaded = broadcast_pytree(
+        (state, start_epoch, best_niqe, loaded))
+    warm = loaded["warm"] or loaded["g"]
+    if loaded["warm"]:
         print(f"Warm-started generator from `{resume}`.")
-    if resume_g and os.path.exists(resume_g):
-        state, start_epoch, best_niqe = resume_generator(state, resume_g)
-        warm = True
+    if loaded["g"]:
         print(f"Resumed generator GAN state from `{resume_g}` at epoch {start_epoch}.")
-        if grain_loader.restore_loader_state(loader, samples_dir, start_epoch):
+        if grain_loader.restore_loader_state(loader, samples_dir, start_epoch, rank()):
             print("Restored data-loader stream position.")
-    if resume_d and os.path.exists(resume_d):
-        state = resume_discriminator(state, resume_d)
+    if loaded["d"]:
         print(f"Resumed discriminator from `{resume_d}`.")
     if content_backbone == "trunk":
         if not warm and not args.synthetic:
@@ -222,20 +251,22 @@ def main(args) -> None:
 
     train_step = make_gan_train_step(generator, discriminator, backbone, g_tx, d_tx, geo, kcfg,
                                      dcfg, cfg)
-    eval_fn = make_eval_fn(build_generator(model_cfg, cfg, device, training=False))
-    niqe_model = NIQE(crop_border=model_cfg.upscale_factor, device=device)
+    eval_fn = niqe_model = writer = None
+    if lead:  # validation and checkpoint IO run on the lead alone
+        eval_fn = make_eval_fn(build_generator(model_cfg, cfg, device, training=False))
+        niqe_model = NIQE(crop_border=model_cfg.upscale_factor, device=device)
 
-    os.makedirs(samples_dir, exist_ok=True)
-    os.makedirs(results_dir, exist_ok=True)
-    writer = None
-    if not args.no_tensorboard:
-        from torch.utils.tensorboard import SummaryWriter
+    os.makedirs(samples_dir, exist_ok=True)  # every rank's loader state lands here
+    if lead:
+        os.makedirs(results_dir, exist_ok=True)
+        if not args.no_tensorboard:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join("samples", "logs", cfg.exp_name))
+            writer = SummaryWriter(os.path.join("samples", "logs", cfg.exp_name))
 
     epochs = cfg.epochs
     storm_hist = deque(maxlen=32)
-    saver = ckpt_lib.AsyncSaver() if cfg.async_checkpoint else None
+    saver = ckpt_lib.AsyncSaver() if cfg.async_checkpoint and lead else None
     for epoch in range(start_epoch, epochs):
         meters = {name: AverageMeter(name, "6.6f") for name in
                   ("Pixel", "Content", "Adversarial", "D(HR)", "D(SR)")}
@@ -295,39 +326,52 @@ def main(args) -> None:
         # best_niqe folds in only on saving epochs, so g_best always names a
         # checkpoint that exists
         saving = (epoch + 1) % cfg.checkpoint_frequency == 0 or (epoch + 1) == epochs
-        if saving:  # the stream position the next epoch starts from
-            grain_loader.save_loader_state(loader, samples_dir, epoch + 1)
-        if not saving and writer is None:
-            continue  # the NIQE would be discarded
-        valid_niqe = (validate(eval_fn, state.g_ema, valid_ds, niqe_model, "Valid", epoch,
-                               device, writer, scale=model_cfg.upscale_factor)
-                      if valid_ds else None)
-        test_niqe = (validate(eval_fn, state.g_ema, test_ds, niqe_model, "Test", epoch, device,
-                              writer, scale=model_cfg.upscale_factor)
-                     if test_ds else None)
-        print("")
-        if not saving:
-            continue
-        # best: test NIQE, else valid NIQE; with no evaluation at all every
-        # saving epoch refreshes g_best and d_best
-        signal = test_niqe if test_niqe is not None else valid_niqe
-        is_best = signal < best_niqe if signal is not None else True
-        if signal is not None:
-            best_niqe = min(signal, best_niqe)
-        g_payload, d_payload = checkpoint_payloads(state, epoch + 1, best_niqe)
-        items = []
-        for kind, payload in (("g", g_payload), ("d", d_payload)):
-            copies = ([os.path.join(results_dir, f"{kind}_best")] if is_best else []) \
-                + [os.path.join(results_dir, f"{kind}_last")]
-            items.append((os.path.join(samples_dir, f"{kind}_epoch_{epoch + 1}"), payload,
-                          copies))
-        save_epoch(saver, items)
-        print(f"Saving `{items[0][0]}` and `{items[1][0]}` with their "
-              f"{'best and ' if is_best else ''}last copies "
-              f"({'asynchronously' if saver is not None else 'synchronously'}).", flush=True)
-        failsafe(saver)
+        if saving:  # the stream position the next epoch starts from, a file a rank
+            grain_loader.save_loader_state(loader, samples_dir, epoch + 1, rank())
+        # the other ranks wait for the lead in the next step's collective
+        if lead and (saving or writer is not None):
+            best_niqe = validate_and_save(eval_fn, state, valid_ds, test_ds, niqe_model, epoch,
+                                          device, writer, saving, best_niqe, samples_dir,
+                                          results_dir, saver, model_cfg.upscale_factor)
+        if saving:
+            failsafe(saver)
     if saver is not None:
         saver.wait()  # the last checkpoints are durable before the CLI returns
+
+
+def validate_and_save(eval_fn, state: GanTrainState, valid_ds, test_ds, niqe_model, epoch: int,
+                      device, writer, saving: bool, best_niqe: float, samples_dir: str,
+                      results_dir: str, saver, scale: int) -> float:
+    """The lead's end of an epoch: G's EMA NIQE on the valid and test sets,
+    then, on a saving epoch, ``g_epoch_N`` and ``d_epoch_N`` with their best
+    and last copies.  Returns the best NIQE."""
+    valid_niqe = (validate(eval_fn, state.g_ema, valid_ds, niqe_model, "Valid", epoch,
+                           device, writer, scale=scale)
+                  if valid_ds else None)
+    test_niqe = (validate(eval_fn, state.g_ema, test_ds, niqe_model, "Test", epoch, device,
+                          writer, scale=scale)
+                 if test_ds else None)
+    print("")
+    if not saving:
+        return best_niqe
+    # best: test NIQE, else valid NIQE; with no evaluation at all every
+    # saving epoch refreshes g_best and d_best
+    signal = test_niqe if test_niqe is not None else valid_niqe
+    is_best = signal < best_niqe if signal is not None else True
+    if signal is not None:
+        best_niqe = min(signal, best_niqe)
+    g_payload, d_payload = checkpoint_payloads(state, epoch + 1, best_niqe)
+    items = []
+    for kind, payload in (("g", g_payload), ("d", d_payload)):
+        copies = ([os.path.join(results_dir, f"{kind}_best")] if is_best else []) \
+            + [os.path.join(results_dir, f"{kind}_last")]
+        items.append((os.path.join(samples_dir, f"{kind}_epoch_{epoch + 1}"), payload,
+                      copies))
+    save_epoch(saver, items)
+    print(f"Saving `{items[0][0]}` and `{items[1][0]}` with their "
+          f"{'best and ' if is_best else ''}last copies "
+          f"({'asynchronously' if saver is not None else 'synchronously'}).", flush=True)
+    return best_niqe
 
 
 def build_parser() -> argparse.ArgumentParser:

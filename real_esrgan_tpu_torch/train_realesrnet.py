@@ -22,6 +22,21 @@ trainer's choices (``make_train_loader``): ``auto`` (the device-resident
 pool, else the C++ decode loader, else Python threads), ``device``,
 ``grain`` (the resumable stream, whose position is saved at every saving
 epoch and restored on resume) and ``threads``.
+
+Data parallel, one rank a GPU (``parallel/mesh.py``), under torchrun or with
+the JAX CLI's launch names::
+
+    torchrun --nproc_per_node=N -m real_esrgan_tpu_torch.train_realesrnet ...
+    COORDINATOR_ADDRESS=host:port NUM_PROCESSES=N PROCESS_ID=r \
+        python -m real_esrgan_tpu_torch.train_realesrnet ...
+
+``--batch-size`` is the global batch, rounded down to a multiple of the
+world size; each rank loads ``batch / world`` (its shard of the data, or of
+each pool batch) and the step averages the gradients over the ranks.  The
+lead (rank 0) resolves ``--resume auto`` and loads the checkpoint, and
+every rank gets the path and the state from it, so no filesystem needs to
+be shared; only the lead validates and writes checkpoints, while each rank
+saves its own grain stream position (``loader_state_p{rank}.bin``).
 """
 
 from __future__ import annotations
@@ -36,7 +51,6 @@ import numpy as np
 import torch
 
 from real_esrgan_tpu_torch import config as run_config
-from real_esrgan_tpu_torch import resolve_device
 from real_esrgan_tpu_torch.data import grain_loader, native_loader
 from real_esrgan_tpu_torch.data.dataset import (
     ThreadedLoader, TrainImageDataset, build_eval_datasets,
@@ -44,6 +58,10 @@ from real_esrgan_tpu_torch.data.dataset import (
 from real_esrgan_tpu_torch.data.device_pool import DevicePoolLoader, build_pool_array
 from real_esrgan_tpu_torch.data.prefetcher import DevicePrefetcher
 from real_esrgan_tpu_torch.metrics.niqe import NIQE
+from real_esrgan_tpu_torch.parallel.mesh import (
+    broadcast_pytree, broadcast_string, is_lead, local_device, process_group, rank, single_host,
+    world_size,
+)
 from real_esrgan_tpu_torch.train import checkpoint as ckpt_lib
 from real_esrgan_tpu_torch.train.esrnet import (
     TrainState, build_generator, build_optimizer, init_state, make_eval_fn, make_train_step,
@@ -60,7 +78,7 @@ LR_SCALE_FLOOR = 1.0 / 64.0
 LOADERS = ("auto", "device", "grain", "threads")
 
 
-def make_train_loader(train_ds, batch: int, cfg, geo, device):
+def make_train_loader(train_ds, batch: int, cfg, geo, device, sharded: bool = True):
     """The training batch loader of ``cfg.loader``, the JAX trainer's chain.
 
     ``auto`` takes the device-resident pool (``data/device_pool.py``: the
@@ -70,16 +88,28 @@ def make_train_loader(train_ds, batch: int, cfg, geo, device):
     RAM) where it builds; then Python threads.  ``device`` forces the pool
     and raises if the set does not fit or is not ``hr_size``-square;
     ``grain`` takes the resumable stream loader; ``threads`` forces Python
-    threads.  Each choice prints the loader it took."""
+    threads.  Each choice prints the loader it took.
+
+    ``batch`` is the rank's batch.  ``sharded``: each rank loads its shard
+    (``rank()`` of ``world_size()``): the host loaders a disjoint stride of
+    the set, the pool its share of each global batch; without it every rank
+    iterates the whole set (the synthetic set is already a rank's size).  As
+    in the JAX trainer the pool is refused across hosts (``--loader
+    device``) or passed over (``auto``); the GPUs of one host may share it."""
     mode = cfg.loader
     if mode not in LOADERS:
         raise ValueError(f"unknown loader {mode!r}; choose one of {LOADERS}")
+    shard_id, num_shards = (rank(), world_size()) if sharded else (0, 1)
+    if mode == "device" and not single_host():
+        raise ValueError("--loader device is single-host only; a run across hosts keeps the "
+                         "sharded host loaders")
     pool_budget = cfg.device_pool_budget_bytes
-    if mode == "device" or (mode == "auto" and pool_budget):
+    if mode == "device" or (mode == "auto" and pool_budget and single_host()):
         pool = build_pool_array(train_ds, geo.hr_size, pool_budget or (1 << 62))
         if pool is not None:
             print(f"Using device-resident pool loader ({pool.nbytes / 1e6:.0f} MB on {device}).")
-            return DevicePoolLoader(pool, batch, seed=cfg.seed, device=device)
+            return DevicePoolLoader(pool, batch * num_shards, seed=cfg.seed, device=device,
+                                    rank=shard_id, world=num_shards)
         if mode == "device":
             raise ValueError("--loader device: dataset exceeds device_pool_budget_bytes or "
                              "images are not uniformly hr_size-shaped")
@@ -89,17 +119,19 @@ def make_train_loader(train_ds, batch: int, cfg, geo, device):
                              "(--synthetic takes auto, device or threads)")
         print("Using grain-contract stream loader (torch.utils.data workers).")
         return grain_loader.GrainLoader(train_ds.files, batch, geo.hr_size,
-                                        num_workers=cfg.num_workers, seed=cfg.seed)
+                                        num_workers=cfg.num_workers, seed=cfg.seed,
+                                        shard_id=shard_id, num_shards=num_shards)
     if mode == "auto" and hasattr(train_ds, "files"):
         if native_loader.available():
             print("Using native C++ data loader.")
             return native_loader.NativeThreadedLoader(
                 train_ds.files, batch, geo.hr_size, num_threads=cfg.num_workers, seed=cfg.seed,
-                cache_bytes=cfg.decoded_cache_bytes)
+                cache_bytes=cfg.decoded_cache_bytes, shard_id=shard_id, num_shards=num_shards)
         print(f"Native loader unavailable ({native_loader.unavailable_reason().splitlines()[0]}); "
               "using Python threads.")
     print("Using Python threaded loader.")
-    return ThreadedLoader(train_ds, batch, cfg.num_workers, seed=cfg.seed)
+    return ThreadedLoader(train_ds, batch, cfg.num_workers, seed=cfg.seed,
+                          shard_id=shard_id, num_shards=num_shards)
 
 
 class SyntheticHRDataset:
@@ -183,36 +215,55 @@ def _configure(args):
 
 
 def main(args) -> None:
-    device = resolve_device(args.cpu)
+    with process_group("gloo" if args.cpu else None):
+        train(args)
+
+
+def global_batch(batch: int, world: int) -> int:
+    """``batch`` rounded down to a multiple of ``world`` (at least ``world``),
+    as the JAX trainer rounds it to its device count."""
+    if batch % world:
+        batch = (batch // world) * world or world
+        print(f"Adjusted batch size to {batch} for {world} ranks.")
+    return batch
+
+
+def train(args) -> None:
+    device = local_device(args.cpu)
     # f32 convolutions and products in true f32 (PyTorch lets cuDNN use TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"Training on {device} (TF32 off for matmul and cuDNN).")
+    world, lead = world_size(), is_lead()
+    print(f"Training on {device}, rank {rank()} of {world} (TF32 off for matmul and cuDNN).")
     geo = run_config.geometry
     kcfg = run_config.kernel_synthesis
     dcfg = run_config.degradation
     model_cfg = run_config.model
     cfg = _configure(args)
     exp_name = args.exp_name or run_config.exp_name
-    batch = args.batch_size or cfg.batch_size
+    batch = global_batch(args.batch_size or cfg.batch_size, world)
+    local_batch = batch // world
 
     if args.synthetic:
-        train_ds = SyntheticHRDataset(geo.hr_size, length=args.steps_per_epoch * batch)
+        # a rank-sized set keeps --steps-per-epoch at any world size
+        train_ds = SyntheticHRDataset(geo.hr_size, length=args.steps_per_epoch * local_batch)
         valid_ds, test_ds = [], []
     else:
         train_ds = TrainImageDataset(cfg.train_image_dir, geo.hr_size,
                                      cache_bytes=cfg.decoded_cache_bytes)
         valid_ds, test_ds = build_eval_datasets(cfg.valid_image_dir, cfg.test_lr_image_dir,
                                                 cfg.test_hr_image_dir, geo.crop_size, geo.scale)
-    loader = make_train_loader(train_ds, batch, cfg, geo, device)
+    loader = make_train_loader(train_ds, local_batch, cfg, geo, device,
+                               sharded=not args.synthetic)
     steps_per_epoch = len(loader)
-    print(f"Loaded datasets: {len(train_ds)} train images, {steps_per_epoch} steps/epoch.")
+    print(f"Loaded datasets: {len(train_ds)} train images, {steps_per_epoch} steps/epoch, "
+          f"{world} ranks of {local_batch}.")
 
     model = build_generator(model_cfg, cfg, device, training=True,
                             generator=torch.Generator().manual_seed(cfg.seed))
     opt = build_optimizer(cfg, steps_per_epoch)
     state = init_state(model, opt)
-    eval_model = build_generator(model_cfg, cfg, device, training=False)
+    eval_model = build_generator(model_cfg, cfg, device, training=False) if lead else None
     print("Build all model successfully.")
 
     samples_dir = os.path.join("samples", exp_name)
@@ -220,13 +271,17 @@ def main(args) -> None:
     start_epoch, best_niqe = 0, 100.0
     resume = args.resume or cfg.resume
     if resume == "auto":
-        resume = ckpt_lib.find_latest_checkpoint(samples_dir)
+        # the lead writes the checkpoints: it resolves the path and sends it
+        resume = broadcast_string(ckpt_lib.find_latest_checkpoint(samples_dir) if lead else "")
         if not resume:
             print("--resume auto: no checkpoint found, starting fresh.")
-    if resume:
+    if resume and lead:
         state, start_epoch, best_niqe = resume_state(state, resume, device)
+    # every rank starts from the lead's state, resumed or fresh
+    state, start_epoch, best_niqe = broadcast_pytree((state, start_epoch, best_niqe))
+    if resume:
         print(f"Resumed from `{resume}` at epoch {start_epoch}.")
-        if grain_loader.restore_loader_state(loader, samples_dir, start_epoch):
+        if grain_loader.restore_loader_state(loader, samples_dir, start_epoch, rank()):
             print("Restored data-loader stream position.")
 
     train_step = make_train_step(
@@ -234,22 +289,23 @@ def main(args) -> None:
         reject_limit=cfg.grad_reject_limit, rollback_after=cfg.rollback_after,
         guard_updates=cfg.skip_nonfinite_updates, reject_mult=cfg.grad_reject_mult,
         clamp_mode=cfg.train_clamp)
-    eval_fn = make_eval_fn(eval_model)
-    niqe_model = NIQE(crop_border=model_cfg.upscale_factor, device=device)
+    eval_fn = make_eval_fn(eval_model) if lead else None
+    niqe_model = NIQE(crop_border=model_cfg.upscale_factor, device=device) if lead else None
 
-    os.makedirs(samples_dir, exist_ok=True)
-    os.makedirs(results_dir, exist_ok=True)
+    os.makedirs(samples_dir, exist_ok=True)  # every rank's loader state lands here
     writer = None
-    if not args.no_tensorboard:
-        from torch.utils.tensorboard import SummaryWriter
+    if lead:
+        os.makedirs(results_dir, exist_ok=True)
+        if not args.no_tensorboard:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(os.path.join("samples", "logs", exp_name))
+            writer = SummaryWriter(os.path.join("samples", "logs", exp_name))
 
     epochs = cfg.epochs
     # trailing-window rejection telemetry: a rollback storm turns into a loud
     # verdict, and --abort-on-storm exits rc=3
     storm_hist = deque(maxlen=32)
-    saver = ckpt_lib.AsyncSaver() if cfg.async_checkpoint else None
+    saver = ckpt_lib.AsyncSaver() if cfg.async_checkpoint and lead else None
     for epoch in range(start_epoch, epochs):
         batch_time = AverageMeter("Time", "6.3f")
         data_time = AverageMeter("Data", "6.3f")
@@ -304,42 +360,56 @@ def main(args) -> None:
         # best_niqe folds in only on saving epochs, so g_best always names a
         # checkpoint that exists
         saving = (epoch + 1) % cfg.checkpoint_frequency == 0 or (epoch + 1) == epochs
-        if saving:  # the stream position the next epoch starts from
-            grain_loader.save_loader_state(loader, samples_dir, epoch + 1)
-        if not saving and writer is None:
-            continue  # the NIQE would be discarded
-        valid_niqe = (validate(eval_fn, state.ema_params, valid_ds, niqe_model, "Valid", epoch,
-                               device, writer, scale=model_cfg.upscale_factor)
-                      if valid_ds else None)
-        test_niqe = (validate(eval_fn, state.ema_params, test_ds, niqe_model, "Test", epoch,
-                              device, writer, scale=model_cfg.upscale_factor)
-                     if test_ds else None)
-        print("")
-        if not saving:
-            continue
-        # best: test NIQE, else valid NIQE; with no evaluation at all the last
-        # saving epoch is the best guess (g_best must exist: it is stage 2's
-        # default warm start)
-        signal = test_niqe if test_niqe is not None else valid_niqe
-        is_best = signal < best_niqe if signal is not None else True
-        if signal is not None:
-            if best_niqe < 100.0 and signal > max(3.0 * best_niqe, best_niqe + 30.0):
-                print(f"WARNING: eval NIQE {signal:.2f} is far above the best {best_niqe:.2f} "
-                      f"— the model may have diverged ({notfinite_count(state.guard)} rejected "
-                      f"updates, {rollback_count(state.guard)} EMA rollbacks so far). Consider "
-                      f"resuming from results/{exp_name}/g_best.", flush=True)
-            best_niqe = min(signal, best_niqe)
-        epoch_path = os.path.join(samples_dir, f"g_epoch_{epoch + 1}")
-        # g_last tracks every saving epoch, so an interrupted run leaves one
-        copies = ([os.path.join(results_dir, "g_best")] if is_best else []) \
-            + [os.path.join(results_dir, "g_last")]
-        items = [(epoch_path, checkpoint_payload(state, epoch + 1, best_niqe), copies)]
-        save_epoch(saver, items)
-        print(f"Saving `{epoch_path}` and {', '.join(os.path.basename(d) for d in copies)} "
-              f"({'asynchronously' if saver is not None else 'synchronously'}).", flush=True)
-        failsafe(saver)
+        if saving:  # the stream position the next epoch starts from, a file a rank
+            grain_loader.save_loader_state(loader, samples_dir, epoch + 1, rank())
+        # validation and checkpoint IO run on the lead alone; the other ranks
+        # wait for it in the next step's collective
+        if lead and (saving or writer is not None):
+            best_niqe = validate_and_save(
+                eval_fn, state, valid_ds, test_ds, niqe_model, epoch, device, writer, saving,
+                best_niqe, exp_name, samples_dir, results_dir, saver, model_cfg.upscale_factor)
+        if saving:
+            failsafe(saver)
     if saver is not None:
         saver.wait()  # the last checkpoint is durable before the CLI returns
+
+
+def validate_and_save(eval_fn, state: TrainState, valid_ds, test_ds, niqe_model, epoch: int,
+                      device, writer, saving: bool, best_niqe: float, exp_name: str,
+                      samples_dir: str, results_dir: str, saver, scale: int) -> float:
+    """The lead's end of an epoch: the EMA weights' NIQE on the valid and test
+    sets, then, on a saving epoch, the epoch checkpoint with its ``g_best``
+    and ``g_last`` copies.  Returns the best NIQE."""
+    valid_niqe = (validate(eval_fn, state.ema_params, valid_ds, niqe_model, "Valid", epoch,
+                           device, writer, scale=scale)
+                  if valid_ds else None)
+    test_niqe = (validate(eval_fn, state.ema_params, test_ds, niqe_model, "Test", epoch,
+                          device, writer, scale=scale)
+                 if test_ds else None)
+    print("")
+    if not saving:
+        return best_niqe
+    # best: test NIQE, else valid NIQE; with no evaluation at all the last
+    # saving epoch is the best guess (g_best must exist: it is stage 2's
+    # default warm start)
+    signal = test_niqe if test_niqe is not None else valid_niqe
+    is_best = signal < best_niqe if signal is not None else True
+    if signal is not None:
+        if best_niqe < 100.0 and signal > max(3.0 * best_niqe, best_niqe + 30.0):
+            print(f"WARNING: eval NIQE {signal:.2f} is far above the best {best_niqe:.2f} "
+                  f"— the model may have diverged ({notfinite_count(state.guard)} rejected "
+                  f"updates, {rollback_count(state.guard)} EMA rollbacks so far). Consider "
+                  f"resuming from results/{exp_name}/g_best.", flush=True)
+        best_niqe = min(signal, best_niqe)
+    epoch_path = os.path.join(samples_dir, f"g_epoch_{epoch + 1}")
+    # g_last tracks every saving epoch, so an interrupted run leaves one
+    copies = ([os.path.join(results_dir, "g_best")] if is_best else []) \
+        + [os.path.join(results_dir, "g_last")]
+    items = [(epoch_path, checkpoint_payload(state, epoch + 1, best_niqe), copies)]
+    save_epoch(saver, items)
+    print(f"Saving `{epoch_path}` and {', '.join(os.path.basename(d) for d in copies)} "
+          f"({'asynchronously' if saver is not None else 'synchronously'}).", flush=True)
+    return best_niqe
 
 
 def check_storm(storm_hist: deque, window_steps: int, rejected: float, lr_scale: float,
@@ -378,11 +448,17 @@ def save_epoch(saver, items) -> None:
 
 def failsafe(saver, watermark: float = 0.8) -> None:
     """The host-memory failsafe after a checkpoint: past ``watermark`` the
-    save in flight is finished and the run exits rc=4 (``utils/hostmem.py``)."""
-    if hostmem.host_memory_fraction() >= watermark:
+    save in flight is finished and the run exits rc=4 (``utils/hostmem.py``).
+    The lead's reading decides for every rank, so no rank is left waiting
+    in a collective for one that exited."""
+    over = broadcast_pytree(is_lead() and hostmem.host_memory_fraction() >= watermark)
+    if over:
         if saver is not None:
             saver.wait()
-        hostmem.check_host_memory(watermark)
+        if is_lead():
+            hostmem.check_host_memory(watermark)
+        if world_size() > 1:
+            raise SystemExit(hostmem.RESTART_EXIT_CODE)
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -797,3 +797,111 @@ def test_side_stream_prefetcher_delivers_the_bytes_it_was_given(cuda):
     on_card = [torch.full((2, 3), i, dtype=torch.uint8, device=cuda) for i in range(3)]
     through = DevicePrefetcher(on_card, cuda)
     assert all(a is b for a, b in zip(through, on_card)) and through.h2d_bytes == 0
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def test_a_one_rank_nccl_group_runs_its_collective_and_changes_no_step(cuda, monkeypatch):
+    """A one-rank NCCL group joined from JAX's launch names: a forced
+    ``all_reduce_mean`` runs through NCCL and returns its input's bits, and
+    three stage-1 steps (``dp_check``'s small preset) are the same bits as
+    with no group (cuDNN held deterministic for both)."""
+    import torch.distributed as dist
+
+    from real_esrgan_tpu_torch.parallel import mesh
+    from real_esrgan_tpu_torch.tools import dp_check
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    plain = dp_check.run_cases(["esrnet_step"], "small", cuda, "")["esrnet_step"]
+    for name, value in (("COORDINATOR_ADDRESS", f"localhost:{dp_check.free_port()}"),
+                        ("NUM_PROCESSES", "1"), ("PROCESS_ID", "0")):
+        monkeypatch.setenv(name, value)
+    with mesh.process_group() as up:
+        assert up and dist.get_backend() == "nccl" and mesh.world_size() == 1
+        grads = {"w": torch.randn(1000, device=cuda), "b": torch.randn(3, 3, device=cuda)}
+        out = mesh.all_reduce_mean(grads, force=True)
+        assert all(out[k] is not grads[k] and torch.equal(out[k], grads[k]) for k in grads)
+        group = dp_check.run_cases(["esrnet_step"], "small", mesh.local_device(),
+                                   "")["esrnet_step"]
+    assert group["metrics"] == plain["metrics"]
+    for key in ("params", "ema"):
+        assert all(torch.equal(group[key][k], plain[key][k]) for k in plain[key]), key
+
+
+def test_two_ranks_sharing_the_card_over_gloo_equal_one_process(cuda, tmp_path):
+    """Two ranks on one card (gloo, CUDA tensors): ``dp_check``'s small
+    stage-1 and G+D steps against the same steps in this process on the
+    whole batch: losses and grad norms within 1e-4 relative (the card
+    against the CPU's bound, TF32 off), the ranks' state the same bits."""
+    from real_esrgan_tpu_torch.tools import dp_check
+
+    cases = ["esrnet_step", "gan_step"]
+    runs = dp_check.launch_local(
+        ["-m", "real_esrgan_tpu_torch.tools.dp_check", "--preset", "small", "--backend", "gloo",
+         "--cases", ",".join(cases), "--out", str(tmp_path)], 2, 300.0)
+    for r, (rc, out) in enumerate(runs):
+        assert rc == 0 and f"DP_CHECK_OK rank={r}" in out, out[-3000:]
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True) for r in range(2)]
+    single = dp_check.run_cases(cases, "small", cuda, str(tmp_path))
+    for case in cases:
+        for m, ref in zip(ranks[0][case]["metrics"], single[case]["metrics"]):
+            for key in ("loss", "grad_norm", "g_loss", "d_loss", "g_grad_norm", "d_grad_norm"):
+                if key in ref:
+                    assert _rel(m[key], ref[key]) <= 1e-4, (case, key)
+        for key in ("params", "ema", "d_params", "d_stats"):
+            if key in ranks[0][case]:
+                a, b = ranks[0][case][key], ranks[1][case][key]
+                assert all(torch.equal(a[k], b[k]) for k in a), (case, key)
+
+
+def test_the_stage1_cli_as_two_ranks_on_the_card_resumes_on_both(cuda, tmp_path):
+    """The tiny stage-1 CLI (tests/_torch_mp_worker.py) as two ranks on the
+    card, each in its own working directory: one epoch, then --resume auto;
+    both ranks print the resumed epoch."""
+    from real_esrgan_tpu_torch.tools.dp_check import launch_local
+
+    worker = os.path.join(ROOT, "tests", "_torch_mp_worker.py")
+    cwds = [tmp_path / f"rank{r}" for r in range(2)]
+    for cwd in cwds:
+        cwd.mkdir()
+    runs = launch_local([worker, "synthetic", "card"], 2, 300.0, cwds=[str(c) for c in cwds])
+    for r, (rc, out) in enumerate(runs):
+        assert rc == 0 and f"MP_WORKER_OK rank={r}" in out, out[-3000:]
+        assert "Training on cuda:0" in out and "at epoch 1." in out
+    assert not (cwds[1] / "results").exists()
+
+
+def test_two_replicas_on_one_card_tile_as_one_device(cuda):
+    """``SRPipeline(devices=[cuda:0, cuda:0])`` at the serving geometry
+    (528/8/8, a 512 x 2048 image: one batch of 4 tiles, two chunks of 2):
+    f32 the same bits as one device, bf16 within 40 dB of it; the RDB kernel
+    launched once an RDB a chunk; a replica's forward never waits on the
+    host (CUDA's sync debug mode raises if it does).  (At other tile sizes cuDNN may pick
+    another algorithm for the chunk's batch size: parallel/tiling.py.)"""
+    import numpy as np
+
+    from real_esrgan_tpu_torch.serve import SRPipeline
+
+    image = np.random.default_rng(3).random((512, 2048, 3)).astype(np.float32)
+    for bf16 in (False, True):
+        one = SRPipeline(num_rrdb=2, bfloat16=bf16, device=cuda)
+        two = SRPipeline(num_rrdb=2, bfloat16=bf16, devices=[cuda, cuda])
+        ref = one.upscale(image)
+        before = fused_rdb.launches
+        out = two.upscale(image)
+        assert fused_rdb.launches - before == 6 * 2
+        # a forward that waited on the host would keep the devices from overlapping
+        tiles = torch.from_numpy(np.ascontiguousarray(image[:528, :528])).to(cuda)[None]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.no_grad():
+                two.models[1](tiles)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if bf16:
+            mse = float(np.mean((out.astype(np.float64) - ref) ** 2))
+            assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= 40.0
+        else:
+            assert np.array_equal(out, ref)

@@ -44,5 +44,6 @@ def test_port_and_chip_smoke_import_no_jax():
                    "train.schedule", "train.optim", "train.guard", "train.esrnet",
                    "data.dataset", "data.prefetcher", "train_realesrnet", "utils.hostmem",
                    "models.discriminator", "models.vgg", "train.esrgan", "train_realesrgan",
-                   "data.device_pool", "data.native_loader", "data.grain_loader"):
+                   "data.device_pool", "data.native_loader", "data.grain_loader",
+                   "parallel", "parallel.mesh", "tools.dp_check"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

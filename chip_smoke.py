@@ -117,7 +117,22 @@
    wide image against one device: f32 the same bits, bf16 within the seam
    bound and 40 dB of the one-device output, the RDB kernel's launches
    counted;
-13. times each kernel against its plain version, its bound and, where one
+13. drives the front end: ``utils.profiling.trace`` around one bf16
+   forward (the Chrome trace names the bf16 RDB kernel) and ``StepTimer``
+   over five; the HTTP server (``scripts/serve_http.py``, bf16, the
+   committed weights, warmup 256) on 127.0.0.1 answering the test image and
+   the wide (tiled) image, each PNG the bits of ``SRPipeline.upscale``
+   quantised alike, ``/healthz`` and ``/stats``; ``python -m
+   real_esrgan_tpu_torch.bench --mode all --iters 3`` in a subprocess (four
+   lines, the flagship last, every rate finite and above 0, a FLOP count
+   and an mfu of at most 1.05 on each, the tiled count over every tile
+   batch); ``graft_entry.entry()`` on the card and ``dryrun_multichip(2)``;
+   ``scripts.make_lr`` on the card over three crops of
+   ``tests/data/tree_sr.png``, then ``scripts.validate_parity`` on the card
+   against a ``--cpu`` run's outputs (pixel match at 40 dB); and
+   ``tools.tile_sweep --combos "528,8,8;272,8,16" --seam``; the RDB
+   kernel's launches counted on every path;
+14. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
@@ -132,6 +147,7 @@ off, the degradation with PyTorch's defaults.  Needs one GPU and no network.
 from __future__ import annotations
 
 import contextlib
+import io
 import itertools
 import json
 import math
@@ -140,7 +156,10 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -2074,6 +2093,259 @@ def drive_ddp(wide: np.ndarray, outputs: dict, gpu: str) -> dict:
     return launches
 
 
+FRONT_END_BENCH_TIMEOUT = 600.0
+# y, x, h, w: LR 64x64, 75x100 and 82x62, four or more NIQE blocks of 96 each
+PARITY_CROPS = ((0, 0, 256, 256), (300, 700, 303, 401), (600, 1400, 330, 250))
+PIXEL_MATCH_DB = 40.0
+SWEEP_COMBOS = "528,8,8;272,8,16"
+MFU_CEILING = 1.05
+
+
+def front_end_profiling(tree: np.ndarray, gpu: str) -> int:
+    """``utils.profiling.trace`` around one bf16 forward of the tree image:
+    the Chrome trace it writes names the bf16 RDB kernel (the count of its
+    events is printed: a profiler run after the script's earlier ones has shown
+    61 of the forward's 69); ``StepTimer``'s summary over five forwards.
+    Returns the phase's K1 launches."""
+    from real_esrgan_tpu_torch.utils.profiling import StepTimer, trace
+
+    pipe = SRPipeline(WEIGHTS, bfloat16=True, device="cuda")
+    x = torch.from_numpy(tree)[None].cuda()
+    before = fused_rdb.launches
+    pipe.apply(x)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp) as prof:
+            pipe.apply(x)
+        (path,) = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        trace_bytes = os.path.getsize(path)
+    k1_events = sum(str(e.get("cat", "")).lower() == "kernel"
+                    and RDB_KERNEL_NAMES[0] in e.get("name", "") for e in events)
+    timer = StepTimer(skip_first=2)
+    timer.tick()
+    for _ in range(5):
+        pipe.apply(x)
+        torch.cuda.synchronize()
+        timer.tick()
+    out_mp = 4 * tree.shape[0] * 4 * tree.shape[1] / 1e6
+    emit(front_end_profiling={"card": gpu, "trace_events": len(events), "trace_bytes": trace_bytes,
+                              "k1_kernel_events": k1_events,
+                              "key_averages_rows": len(prof.key_averages()),
+                              "step_timer": timer.summary(items_per_step=out_mp),
+                              "items": "output MP", "steady_mean_s": timer.steady_mean})
+    check(k1_events > 0, f"the trace never names {RDB_KERNEL_NAMES[0]}")
+    check(math.isfinite(timer.steady_mean), "StepTimer has no steady-state samples")
+    return fused_rdb.launches - before
+
+
+def front_end_http(tree: np.ndarray, wide: np.ndarray, gpu: str) -> int:
+    """The HTTP front end on 127.0.0.1 (bf16, the committed weights, warmup
+    256): the tree image and the wide image (tiled) POSTed as PNGs; each
+    answer the bits of ``SRPipeline.upscale`` quantised as the server does;
+    ``/healthz`` and ``/stats``; K1's launches a request.  Returns them."""
+    from real_esrgan_tpu_torch.scripts import serve_http
+    from real_esrgan_tpu_torch.utils.imgio import decode_png, encode_png
+
+    t0 = time.perf_counter()
+    handler = serve_http.build_app(WEIGHTS, bfloat16=True, warmup_size=256)
+    startup_s = time.perf_counter() - t0
+    server = ThreadingHTTPServer(("127.0.0.1", dp_check.free_port()), handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    pipeline = handler.pipeline_ref
+    launches, requests = 0, []
+    try:
+        for name, image in (("tree", tree), ("wide_tiled", wide)):
+            body = encode_png((image * 255.0 + 0.5).astype(np.uint8))
+            lr = decode_png(body).astype(np.float32) / 255.0
+            before = fused_rdb.launches
+            t1 = time.perf_counter()
+            req = urllib.request.Request(url + "/upscale", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                png, server_s = resp.read(), float(resp.headers["X-Latency-Seconds"])
+            client_s = time.perf_counter() - t1
+            launched = fused_rdb.launches - before
+            got = decode_png(png)
+            with torch.no_grad():
+                expected = serve_http.quantize(pipeline.upscale(lr))
+            check(np.array_equal(got, expected),
+                  f"HTTP {name}: the PNG differs from SRPipeline.upscale's bits")
+            core = pipeline.tile - 2 * pipeline.tile_overlap
+            forwards = 1 if max(image.shape[:2]) <= pipeline.tile_threshold else math.ceil(
+                math.ceil(image.shape[0] / core) * math.ceil(image.shape[1] / core)
+                / pipeline.tile_batch)
+            check(launched == RDBS_PER_FORWARD * forwards,
+                  f"HTTP {name}: fused_rdb launched {launched} times, not "
+                  f"{RDBS_PER_FORWARD * forwards}")
+            launches += launched
+            requests.append({"name": name, "in": list(image.shape[:2]), "out": list(got.shape),
+                             "server_latency_s": server_s, "client_s": client_s,
+                             "fused_rdb_launches": launched})
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        with urllib.request.urlopen(url + "/stats", timeout=30) as resp:
+            stats = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    emit(front_end_http={"card": gpu, "startup_s": startup_s, "requests": requests,
+                         "healthz": health, "stats": stats})
+    check(health == {"status": "ok", "device": "cuda", "served": 2}, f"/healthz gave {health}")
+    check(stats.get("count") == 2, f"/stats gave {stats}")
+    return launches
+
+
+def front_end_bench(gpu: str) -> dict:
+    """``python -m real_esrgan_tpu_torch.bench --mode all --iters 3`` in a
+    subprocess: four JSON lines, the flagship last; every value finite and
+    above 0; every line with a FLOP count and an mfu at most MFU_CEILING; the
+    tiled count over every tile batch; K1 launched in the inference and tiled
+    modes.  Returns K1's launches by mode."""
+    with tempfile.TemporaryDirectory() as tmp:
+        env = dict(os.environ, GPU_BUSY_LOCK=os.path.join(tmp, "no.lock"))
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "real_esrgan_tpu_torch.bench", "--mode", "all",
+                              "--iters", "3"], cwd=ROOT, env=env, capture_output=True, text=True,
+                             timeout=FRONT_END_BENCH_TIMEOUT)
+        seconds = time.perf_counter() - t0
+    lines = [json.loads(line) for line in run.stdout.splitlines() if line.startswith("{")]
+    emit(front_end_bench={"card": gpu, "rc": run.returncode, "seconds": seconds, "lines": lines})
+    check(run.returncode == 0, f"the bench exited {run.returncode}: {run.stderr[-3000:]}")
+    check([line["mode"] for line in lines] == ["tiled", "train", "gan", "inference"],
+          f"the bench printed {[line.get('mode') for line in lines]}")
+    for line in lines:
+        check(math.isfinite(line["value"]) and line["value"] > 0, f"bench {line['mode']} value")
+        check(line.get("flops_per_unit", 0) > 0, f"bench {line['mode']} has no FLOP count")
+        check(0 < line["mfu"] <= MFU_CEILING, f"bench {line['mode']} mfu {line['mfu']}")
+        check(line["device"] == gpu, f"bench {line['mode']} device {line['device']}")
+    tiled, flagship = lines[0], lines[-1]
+    check(tiled["flops_per_call"] == tiled["tile_batches"] * tiled["flops_per_tile_batch"],
+          "the tiled FLOPs are not every tile batch's")
+    check(all(k in flagship for k in ("tiled_mp_per_s", "train_imgs_per_s", "gan_imgs_per_s")),
+          "the flagship line lacks the other three rates")
+    launches = {line["mode"]: line["fused_rdb_launches"] for line in lines}
+    check(launches["inference"] > 0 and launches["tiled"] > 0,
+          f"the bench's inference or tiled mode never launched fused_rdb: {launches}")
+    return launches
+
+
+def front_end_graft_entry(gpu: str) -> int:
+    """``graft_entry.entry()`` on the card (69 K1 launches, (1, 256, 256, 3),
+    finite), then ``dryrun_multichip(2)`` (two gloo ranks on the CPU)."""
+    from real_esrgan_tpu_torch import graft_entry
+
+    fn, (params, x) = graft_entry.entry()
+    before = fused_rdb.launches
+    out = fn(params, x)
+    torch.cuda.synchronize()
+    launched = fused_rdb.launches - before
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        graft_entry.dryrun_multichip(2)
+    lines = printed.getvalue().splitlines()
+    emit(front_end_graft_entry={"card": gpu, "device": str(out.device), "shape": list(out.shape),
+                                "dtype": str(out.dtype), "fused_rdb_launches": launched,
+                                "dryrun_seconds": time.perf_counter() - t0, "dryrun": lines})
+    check(out.is_cuda and tuple(out.shape) == (1, 256, 256, 3), f"entry() gave {out.shape}")
+    check(bool(torch.isfinite(out).all()), "entry()'s output is not finite")
+    check(launched == RDBS_PER_FORWARD, f"entry() launched fused_rdb {launched} times")
+    check(len(lines) == 3 and all(line.startswith("dryrun_multichip(2): ") for line in lines),
+          f"dryrun_multichip(2) printed {lines}")
+    return launched
+
+
+def front_end_parity_scripts(tree_sr: np.ndarray, gpu: str) -> int:
+    """``scripts.make_lr`` on the card over three crops of tree_sr.png, then
+    ``scripts.validate_parity`` on the card (bf16) against a ``--cpu`` run's
+    SR outputs (f32) of those LR images: the pixel match held at
+    PIXEL_MATCH_DB; the NIQE entry printed, not held (these are not Set5
+    images: ``--niqe-tol`` 1000).  Returns the card run's K1 launches."""
+    from real_esrgan_tpu_torch.scripts import make_lr, validate_parity
+
+    with tempfile.TemporaryDirectory() as tmp:
+        gt_dir = os.path.join(tmp, "gt")
+        os.makedirs(gt_dir)
+        for i, (y, x, h, w) in enumerate(PARITY_CROPS):
+            write_png(os.path.join(gt_dir, f"crop{i}.png"), tree_sr[y:y + h, x:x + w])
+        pairs = os.path.join(tmp, "pairs")
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            make_lr.main(["--gt-dir", gt_dir, "--output-dir", pairs])
+        lr_dir = os.path.join(pairs, "LRbicx4")
+        shapes = {name: list(read_png(os.path.join(lr_dir, name)).shape)
+                  for name in sorted(os.listdir(lr_dir))}
+        check(len(shapes) == len(PARITY_CROPS) and "on cuda" in printed.getvalue(),
+              f"make_lr wrote {shapes}: {printed.getvalue()[-500:]}")
+        common = ["--weights", WEIGHTS, "--model", "realesrnet", "--set5-lr", lr_dir,
+                  "--niqe-tol", "1000"]
+        verdicts, before, launched = {}, 0, 0
+        for name, extra in (("cpu", ["--cpu", "--sr-out-dir", os.path.join(tmp, "cpu_sr")]),
+                            ("card", ["--reference-sr-dir", os.path.join(tmp, "cpu_sr", "Set5"),
+                                      "--pixel-match-psnr", str(PIXEL_MATCH_DB)])):
+            report = os.path.join(tmp, f"{name}.json")
+            before = fused_rdb.launches
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = validate_parity.main(common + extra + ["--report", report])
+            launched = fused_rdb.launches - before
+            with open(report) as f:
+                verdicts[name] = {"rc": rc, **json.load(f)}
+    emit(front_end_parity_scripts={"card": gpu, "lr_shapes": shapes, "verdicts": verdicts,
+                                   "card_fused_rdb_launches": launched})
+    for name, verdict in verdicts.items():
+        check(verdict["rc"] == 0, f"validate_parity ({name}) exited {verdict['rc']}")
+    match = [c for c in verdicts["card"]["checks"] if c["check"] == "pixel_match_psnr"]
+    check(len(match) == 1 and match[0]["ok"] and match[0]["value"] >= PIXEL_MATCH_DB,
+          f"validate_parity's pixel match: {match}")
+    check(launched == 2 * RDBS_PER_FORWARD * len(PARITY_CROPS),
+          f"validate_parity on the card launched fused_rdb {launched} times")
+    return launched
+
+
+def front_end_tile_sweep(gpu: str) -> int:
+    """``tools.tile_sweep --combos SWEEP_COMBOS --seam`` at 2048 on the card:
+    one row a combo, each with a rate above 0 and a finite seam error.
+    Returns its K1 launches."""
+    from real_esrgan_tpu_torch.tools import tile_sweep
+
+    printed = io.StringIO()
+    before = fused_rdb.launches
+    with contextlib.redirect_stdout(printed):
+        tile_sweep.main(["--combos", SWEEP_COMBOS, "--seam"])
+    launched = fused_rdb.launches - before
+    rows = [json.loads(line) for line in printed.getvalue().splitlines() if line.startswith("{")]
+    emit(front_end_tile_sweep={"card": gpu, "in_size": 2048, "rows": rows,
+                               "fused_rdb_launches": launched})
+    check(len(rows) == len(SWEEP_COMBOS.split(";")), f"tile_sweep printed {len(rows)} rows")
+    for row in rows:
+        check(row["mp_per_s"] > 0 and math.isfinite(row["seam"]["interior_8bit"]["max"]),
+              f"tile_sweep row {row}")
+    check(launched > 0, "tile_sweep never launched fused_rdb")
+    return launched
+
+
+def drive_front_end(tree: np.ndarray, wide: np.ndarray, tree_sr: np.ndarray, gpu: str) -> dict:
+    """The front-end phase: profiling, the HTTP server, the bench, the entry
+    pair, the parity scripts and the tile sweep.  Returns K1's launches by
+    path."""
+    t0 = time.perf_counter()
+    launches = {"profiling": front_end_profiling(tree, gpu),
+                "http": front_end_http(tree, wide, gpu)}
+    bench_launches = front_end_bench(gpu)
+    launches.update(bench_inference=bench_launches["inference"],
+                    bench_tiled=bench_launches["tiled"],
+                    entry=front_end_graft_entry(gpu),
+                    validate_parity=front_end_parity_scripts(tree_sr, gpu),
+                    tile_sweep=front_end_tile_sweep(gpu))
+    emit(front_end_seconds=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
@@ -2202,6 +2474,7 @@ def main() -> int:
     drive_loaders(tree_sr, gpu)
     gan_launches = drive_gan(tree_sr, gpu)
     ddp_launches = drive_ddp(wide, outputs, gpu)
+    front_end_launches = drive_front_end(tree, wide, tree_sr, gpu)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)
@@ -2212,7 +2485,8 @@ def main() -> int:
     check(bf16_psnr >= 40.0, f"bf16 crop PSNR {bf16_psnr:.2f} dB against the JAX golden output")
 
     trainers = {torch.bfloat16: {"train_validation": train_launches, **gan_launches,
-                                 "tiled_devices": ddp_launches[torch.bfloat16]},
+                                 "tiled_devices": ddp_launches[torch.bfloat16],
+                                 **front_end_launches},
                 torch.float32: {"train_validation": 0, "gan_validation": 0, "npz_snapshot": 0,
                                 "tiled_devices": ddp_launches[torch.float32]}}
     emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],

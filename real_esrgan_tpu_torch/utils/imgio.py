@@ -2,7 +2,8 @@
 port's copy of real_esrgan_tpu/utils/imgio.py.
 
 cv2 is imported only inside the functions that need it.  ``read_png`` and
-``write_png`` need only zlib and numpy, so a machine without cv2 or PIL can
+``write_png`` (over ``decode_png`` and ``encode_png``, which work on bytes)
+need only zlib and numpy, so a machine without cv2 or PIL can
 still read the usual PNG (grey, palette, RGB, with or without alpha, 8 or
 16 bits, non-interlaced) and write an 8-bit RGB one.  ``load_image_rgb``
 reads through cv2 where it imports, else a PNG through ``read_png``;
@@ -109,7 +110,13 @@ def _unfilter(raw: bytes, height: int, width: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """PNG -> (H, W, 3) uint8 RGB, with zlib and numpy: what
+    """PNG file -> (H, W, 3) uint8 RGB: ``decode_png`` of its bytes."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """PNG bytes -> (H, W, 3) uint8 RGB, with zlib and numpy: what
     ``cv2.imread(path, IMREAD_COLOR)`` gives after its BGR -> RGB flip.
 
     Takes colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha) and
@@ -117,9 +124,8 @@ def read_png(path: str) -> np.ndarray:
     becomes three equal channels, alpha is dropped (not composited), and a
     16-bit sample keeps its high byte, as cv2 maps it.  Anything else
     (interlaced, bit depth 1, 2 or 4) raises a ``ValueError`` that names
-    the colour type, bit depth and interlace."""
-    with open(path, "rb") as f:
-        data = f.read()
+    the colour type, bit depth and interlace; ``path`` names the source in
+    errors."""
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
     pos, idat, header, palette = 8, [], None, None
@@ -162,17 +168,21 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def write_png(path: str, image: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG, with zlib and numpy."""
+    """(H, W, 3) uint8 -> 8-bit RGB PNG file (``encode_png``)."""
+    data = encode_png(image)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an 8-bit RGB PNG, with zlib and numpy."""
     arr = np.ascontiguousarray(image, np.uint8)
     if arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"write_png takes (H, W, 3) uint8, got {arr.shape}")
     h, w, _ = arr.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * 3)], axis=1)
-    with open(path, "wb") as f:
-        f.write(_PNG_SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+    return (_PNG_SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
 
 
 def load_image_rgb(path: str) -> np.ndarray:

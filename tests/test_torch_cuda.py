@@ -905,3 +905,62 @@ def test_two_replicas_on_one_card_tile_as_one_device(cuda):
             assert 10 * math.log10(1.0 / max(mse, 1e-20)) >= 40.0
         else:
             assert np.array_equal(out, ref)
+
+
+def test_http_round_trip_on_the_card(cuda):
+    """The port's HTTP front end on the card (2 RRDBs, bf16, warmup 64): the
+    PNG is ``SRPipeline.upscale``'s output quantised as the server does, bit
+    for bit; the request launched the RDB kernel once an RDB; ``/healthz``
+    says cuda."""
+    import json
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    from real_esrgan_tpu_torch.scripts import serve_http
+    from real_esrgan_tpu_torch.tools.dp_check import free_port
+    from real_esrgan_tpu_torch.utils.imgio import decode_png, encode_png
+
+    handler = serve_http.build_app(num_rrdb=2, bfloat16=True, warmup_size=64)
+    server = ThreadingHTTPServer(("127.0.0.1", free_port()), handler)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        image = (np.random.default_rng(5).random((48, 64, 3)) * 255).astype(np.uint8)
+        before = fused_rdb.launches
+        req = urllib.request.Request(url + "/upscale", data=encode_png(image), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            got = decode_png(resp.read())
+        assert fused_rdb.launches - before == 6
+        with torch.no_grad():
+            sr = handler.pipeline_ref.upscale(image.astype(np.float32) / 255.0)
+        assert np.array_equal(got, serve_http.quantize(sr))
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            assert json.loads(resp.read()) == {"status": "ok", "device": "cuda", "served": 1}
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+def test_bench_inference_and_tiled_modes_on_the_card(cuda, monkeypatch):
+    """The bench's inference and tiled measures at 2 RRDBs on the card: K1
+    launched on both paths, a FLOP count over every tile batch, an mfu at
+    most 1.05 of the H100's bf16 peak."""
+    from real_esrgan_tpu_torch import bench
+    from real_esrgan_tpu_torch.configuration import ModelConfig
+
+    monkeypatch.setattr(bench, "MODEL", ModelConfig(num_rrdb=2))
+    card = bench.card_name(cuda)
+    m = bench.measure(2, 64, 2, cuda)
+    assert m.extra["fused_rdb_launches"] == 6 * (1 + 3 * 2)  # warmup, then 3 passes of 2
+    line = bench._line("inference", "x", m, "MP/s", cuda, card)
+    assert m.value > 0 and 0 < line["mfu"] <= 1.05
+    # 512 at 272/8: core 256, 2 x 2 tiles, one batch of 4
+    t = bench.measure_tiled(1, cuda, in_size=512, tile=272, tile_batch=4, overlap=8)
+    assert t.extra["fused_rdb_launches"] == 6 * (1 + 3)
+    assert t.extra["tile_batches"] == 1
+    assert t.extra["flops_per_call"] == t.extra["flops_per_tile_batch"]
+    line = bench._line("tiled", "x", t, "MP/s", cuda, card)
+    assert t.value > 0 and 0 < line["mfu"] <= 1.05

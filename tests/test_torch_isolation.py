@@ -45,5 +45,7 @@ def test_port_and_chip_smoke_import_no_jax():
                    "data.dataset", "data.prefetcher", "train_realesrnet", "utils.hostmem",
                    "models.discriminator", "models.vgg", "train.esrgan", "train_realesrgan",
                    "data.device_pool", "data.native_loader", "data.grain_loader",
-                   "parallel", "parallel.mesh", "tools.dp_check"):
+                   "parallel", "parallel.mesh", "tools.dp_check", "utils.profiling", "bench",
+                   "scripts.serve_http", "graft_entry", "scripts.validate_parity",
+                   "scripts.make_lr", "tools.tile_sweep"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

@@ -137,7 +137,26 @@
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
    without the host's gaps), and prints
    one JSON line ``{"kernels": [...]}``; the last line is
-   ``{"ok": true, "device": {...}}``.
+   ``{"ok": true, "device": {...}}``;
+15. before step 14's ``kernels`` line, drives the research tools in a
+   temporary directory: ``tools.make_inenv_dataset --textures`` on
+   ``tests/data/tree_sr.png`` and a seeded 600 x 512 stand-in for the hopper
+   photograph (177 tree and 90 hopper crops, two held-out sources with their
+   pairs; a texture it cannot read is skipped) and
+   ``scripts.make_degraded_eval`` on them; ``tools.perf_lab all`` at batch 8 x
+   256^2 and ``gen --no-subpixel`` (every reading finite and above 0, the
+   matmul peak at most 1.05 x 989.4 TFLOP/s, the four RDB formulations and
+   the generator without subpixel within the bf16 bound of ``rdb_plain`` and
+   of the generator); ``tools.tail_exp`` in its three modes (``conv_i8`` on the
+   card bit-exact against int64 sums on the CPU); ``tools.nan_probe`` for one
+   epoch at batch 16 and full width, then ``dissect`` with one weight of
+   trunk.5 set to inf (located in trunk.5, artifacts written) and
+   ``tools.explode_analysis`` on them in both dtypes; ``tools.grad_probe``
+   (one finite row a source); and ``tools/run_inenv10_program.sh`` at one
+   epoch a stage in that directory (rc 0, 8 finite scores, both snapshots
+   load, the committed ``assets/*.npz`` unchanged); the RDB kernel's launches
+   of ``perf_lab gen`` and of the program's CLIs (``FUSED_RDB_LAUNCH_LOG``)
+   join ``fused_rdb_launches`` and the ``kernels`` line.
 
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  f32 phases run with TF32
@@ -2346,6 +2365,302 @@ def drive_front_end(tree: np.ndarray, wide: np.ndarray, tree_sr: np.ndarray, gpu
     return launches
 
 
+# research_tools: the crop set's shape (tools/make_inenv_dataset.py's regions,
+# steps and --hopper-repeat 6 on the 1024 x 2048 tree and a 600 x 512 hopper)
+HOPPER_SHAPE, HOPPER_SEED = (600, 512, 3), 16
+INENV_CROPS = {"tree": 177, "hopper": 90}  # 3x24 + 3x35, 15 x 6
+PERF_LAB_ITERS, TAIL_ITERS = 3, 3
+PROGRAM = os.path.join(ROOT, "real_esrgan_tpu_torch", "tools", "run_inenv10_program.sh")
+PROGRAM_ENV = {"S1_EPOCHS": "1", "S2_EPOCHS": "1", "S1_BUDGET": "300", "S2_BUDGET": "300"}
+PROGRAM_TIMEOUT = 900.0
+POISONED = "trunk.5.rdb1.conv1.weight"
+
+
+def quiet(fn, *args):
+    """``fn(*args)`` with its standard output kept: (result, printed lines)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = fn(*args)
+    return result, printed.getvalue().splitlines()
+
+
+def research_dataset(data: str, tmp: str, gpu: str) -> None:
+    """``tools.make_inenv_dataset --textures`` on tree_sr.png and a seeded
+    600 x 512 stand-in for the hopper photograph (the installed JPEG and the
+    textures are absent on the card's machine: each texture is skipped and
+    printed), then ``scripts.make_degraded_eval`` on its eval_src, the flags
+    of tests/test_torch_inenv10.py: 177 tree and 90 hopper crops, two
+    held-out sources with GTmod4/LRbicx4 pairs, aligned degraded pairs."""
+    from real_esrgan_tpu_torch.tools import make_inenv_dataset
+
+    hopper = os.path.join(tmp, "hopper_stand_in.png")
+    write_png(hopper, np.random.default_rng(HOPPER_SEED).integers(0, 256, HOPPER_SHAPE,
+                                                                  dtype=np.uint8))
+    t0 = time.perf_counter()
+    _, printed = quiet(make_inenv_dataset.main, ["--out", data, "--tree", TREE_SR,
+                                                 "--hopper", hopper, "--textures"])
+    seconds = time.perf_counter() - t0
+    train = sorted(os.listdir(os.path.join(data, "train")))
+    counts = {src: sum(n.startswith(src + "_") for n in train) for src in INENV_CROPS}
+    textures = len(train) - sum(counts.values())
+    pairs = {kind: sorted(os.listdir(os.path.join(data, "eval", kind)))
+             for kind in ("GTmod4", "LRbicx4")}
+    t0 = time.perf_counter()
+    _, degraded_printed = quiet(make_degraded_eval.main, [
+        "--gt-dir", os.path.join(data, "eval_src"), "--output-dir",
+        os.path.join(data, "eval_degraded"), "--seed", "0", "--hr-size", "160",
+        "--crop-size", "128"])
+    degraded_seconds = time.perf_counter() - t0
+    degraded = {kind: sorted(os.listdir(os.path.join(data, "eval_degraded", kind)))
+                for kind in ("GTmod4", "LRx4")}
+    emit(research_tools={"tool": "make_inenv_dataset", "card": gpu, "seconds": seconds,
+                         "crops": len(train), "by_source": counts, "texture_crops": textures,
+                         "printed": printed[:12], "eval_pairs": pairs["GTmod4"],
+                         "degraded_pairs": len(degraded["LRx4"]),
+                         "degraded_seconds": degraded_seconds,
+                         "degraded_printed": degraded_printed[-1:]})
+    check(counts == INENV_CROPS and len(train) == sum(INENV_CROPS.values()) + textures,
+          f"make_inenv_dataset wrote {counts} and {textures} texture crops")
+    check(pairs["GTmod4"] == pairs["LRbicx4"] == ["hopper_heldout.png", "tree_heldout.png"],
+          f"make_inenv_dataset's eval pairs: {pairs}")
+    check(degraded["GTmod4"] == degraded["LRx4"] and degraded["LRx4"],
+          f"make_degraded_eval wrote {len(degraded['GTmod4'])} HR, {len(degraded['LRx4'])} LR")
+
+
+def research_perf_lab(gpu: str) -> int:
+    """``tools.perf_lab all`` at the JAX defaults (batch 8, 256^2) with
+    PERF_LAB_ITERS, then ``gen --no-subpixel``: every reading finite and
+    above 0 (a FAILED degradation case fails the phase), the matmul peak at
+    most MFU_CEILING x 989.4 TFLOP/s; on one input the four RDB formulations
+    within the bf16 bound of ``rdb_plain``, and the bf16 generator with and
+    without subpixel within it.  Returns the K1 launches of ``gen``."""
+    from real_esrgan_tpu_torch.bench import H100_BF16_PEAK_TFLOPS
+    from real_esrgan_tpu_torch.models import Generator
+    from real_esrgan_tpu_torch.tools import perf_lab
+
+    before = fused_rdb.launches
+    t0 = time.perf_counter()
+    result, _ = quiet(perf_lab.main, ["all", "--iters", str(PERF_LAB_ITERS)])
+    result["gen_no_subpixel"], _ = quiet(perf_lab.main, ["gen", "--no-subpixel", "--iters",
+                                                         str(PERF_LAB_ITERS)])
+    result["gen_no_subpixel"] = result["gen_no_subpixel"]["gen"]
+    seconds, launched = time.perf_counter() - t0, fused_rdb.launches - before
+
+    kernels, biases = perf_lab.rand_weights("cuda")
+    x = (torch.rand((2, 64, 96, perf_lab.C), generator=torch.Generator().manual_seed(3))
+         .to("cuda", torch.bfloat16))
+    with torch.no_grad():
+        ref = rdb_plain(x, pack_rdb_weights([k.permute(3, 2, 0, 1) for k in kernels], biases,
+                                            perf_lab.C, perf_lab.G, torch.bfloat16))
+        forms = {name: within(fn(kernels, biases, x), ref)
+                 for name, fn in perf_lab.RDB_FORMS.items()}
+        lr = torch.rand((1, 48, 64, 3), generator=torch.Generator().manual_seed(4)).cuda()
+        outs = [Generator(dtype=torch.bfloat16, subpixel=subpixel, device="cuda",
+                          generator=torch.Generator().manual_seed(0)).eval()(lr)
+                for subpixel in (True, False)]
+        subpixel_ok, subpixel_err = within(outs[1], outs[0])
+    emit(research_tools={"tool": "perf_lab", "card": gpu, "seconds": seconds,
+                         "iters": PERF_LAB_ITERS,
+                         "readings": result, "fused_rdb_launches": launched,
+                         "rdb_forms_vs_rdb_plain_max_abs": {k: v[1] for k, v in forms.items()},
+                         "gen_subpixel_vs_upsample_max_abs": subpixel_err})
+    records = [r for rs in result.values() for r in (rs if isinstance(rs, list) else [rs])]
+    for record in records:
+        rate = record.get("tflops", record.get("mp_per_s", record.get("ms")))
+        check("failed" not in record and rate is not None and math.isfinite(rate) and rate > 0,
+              f"perf_lab reading {record}")
+    peak = max(r["tflops"] for r in result["peak"])
+    check(peak <= MFU_CEILING * H100_BF16_PEAK_TFLOPS,
+          f"perf_lab peak {peak} TF/s above {MFU_CEILING} x {H100_BF16_PEAK_TFLOPS}")
+    check(all(ok for ok, _ in forms.values()), f"an RDB formulation disagrees: {forms}")
+    check(subpixel_ok, f"gen without subpixel differs from gen by {subpixel_err}")
+    check(result["gen"]["fused_rdb_launches"] > 0 and not result["gen_no_subpixel"]["subpixel"],
+          "perf_lab gen never launched K1")
+    return launched
+
+
+def research_tail_exp(gpu: str) -> None:
+    """``tools.tail_exp`` in its three modes with TAIL_ITERS: every time
+    finite and above 0; ``conv_i8`` on the card bit-exact against the int64
+    sums on the CPU at every per-conv shape, on a small input."""
+    from real_esrgan_tpu_torch.tools import tail_exp
+
+    t0 = time.perf_counter()
+    readings = {mode: quiet(tail_exp.main, ["--mode", mode, "--iters", str(TAIL_ITERS)])[0]
+                for mode in tail_exp.MODES}
+    seconds = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(5)
+    exact = {}
+    for cin, cout in tail_exp.INT8_SHAPES:
+        xq = torch.randint(-127, 128, (2, 16, 24, cin), generator=gen, dtype=torch.int8)
+        kq = torch.randint(-127, 128, (3, 3, cin, cout), generator=gen, dtype=torch.int8)
+        out = tail_exp.conv_i8(xq.cuda(), kq.cuda()).cpu()
+        exact[f"{cin}->{cout}"] = bool(torch.equal(out, tail_exp.conv_i8_reference(xq, kq)))
+    emit(research_tools={"tool": "tail_exp", "card": gpu, "seconds": seconds,
+                         "iters": TAIL_ITERS, "readings": readings,
+                         "conv_i8_bit_exact": exact})
+    for mode, records in readings.items():
+        for record in records:
+            times = [v for k, v in record.items() if k.endswith("ms")]
+            check(times and all(math.isfinite(t) and t > 0 for t in times),
+                  f"tail_exp {mode}: {record}")
+    check(all(exact.values()), f"conv_i8 is not bit-exact on the card: {exact}")
+
+
+def research_nan_probe(train_dir: str, out: str, gpu: str) -> None:
+    """``tools.nan_probe`` for one epoch of the crop set at batch 16 and full
+    width; then ``dissect`` on the initial state with one weight of
+    ``trunk.5`` set to inf: the first non-finite output is in trunk.5, the
+    artifacts are written; ``tools.explode_analysis`` reads them back, in
+    both dtypes.  Neither runs K1 (the training model runs rdb_plain)."""
+    from real_esrgan_tpu_torch import config as run_config
+    from real_esrgan_tpu_torch.tools import explode_analysis, nan_probe
+
+    argv = ["--train-dir", train_dir, "--epochs", "1", "--batch-size", "16", "--out", out]
+    before = fused_rdb.launches
+    t0 = time.perf_counter()
+    result, printed = quiet(nan_probe.main, argv)
+    seconds = time.perf_counter() - t0
+    args = nan_probe.build_parser().parse_args(argv)
+    probe, state = nan_probe.build_probe(args, result["steps"], torch.device("cuda"))
+    state.params[POISONED][0, 0, 1, 1] = float("inf")
+    up1, up2 = explode_analysis.replay_coins(probe.cfg.seed, 1, 0, run_config.degradation)
+    names = sorted(os.listdir(train_dir))[:16]
+    hr = torch.from_numpy(np.stack([read_png(os.path.join(train_dir, n)) for n in names])).cuda()
+    report, _ = quiet(nan_probe.dissect, probe, state, hr, up1, up2, "step0_e1")
+    first = (report.get("forward_nonfinite_layers") or [["none"]])[0][0]
+    artifacts = sorted(os.listdir(out))
+    t0 = time.perf_counter()
+    explode, _ = quiet(explode_analysis.main, ["--dir", out, "--step", "0", "--epoch", "1",
+                                               "--batch", "0"])
+    explode_seconds = time.perf_counter() - t0
+    launched = fused_rdb.launches - before
+    emit(research_tools={"tool": "nan_probe", "card": gpu, "seconds": seconds,
+                         "steps": result["steps"], "bad_steps": result["bad_steps"],
+                         "verdict": printed[-1], "poisoned": POISONED,
+                         "first_nonfinite_output": first, "loss": report["loss"],
+                         "guard_rejected": report["guard_rejected"], "artifacts": artifacts})
+    emit(research_tools={"tool": "explode_analysis", "card": gpu, "seconds": explode_seconds,
+                         **{dtype: {"loss": r["loss"], "grads_maxabs": r["grads_maxabs"],
+                                    "top": r["top"][:4],
+                                    "nonfinite_outputs": len(r["nonfinite_outputs"]),
+                                    "first_nonfinite_output": r["nonfinite_outputs"][0][0]
+                                    if r["nonfinite_outputs"] else None}
+                            for dtype, r in explode.items()}})
+    check(result["steps"] == 16, f"nan_probe ran {result['steps']} steps, not 16")
+    check(first.startswith("trunk.5"), f"the poisoned trunk.5 was located at {first}")
+    check(artifacts == ["step0_e1.json", "step0_e1_hr_uint8.npy", "step0_e1_params.npz"],
+          f"nan_probe wrote {artifacts}")
+    for dtype in ("bf16", "f32"):
+        bad = explode[dtype]["nonfinite_outputs"]
+        check(bool(bad) and bad[0][0].startswith("trunk.5"),
+              f"explode_analysis [{dtype}] located no non-finite output in trunk.5: {bad[:3]}")
+    check(launched == 0, f"nan_probe and explode_analysis launched K1 {launched} times")
+
+
+def research_grad_probe(train_dir: str, gpu: str) -> None:
+    """``tools.grad_probe`` with the committed ESRNet weights, 2 draws of 8:
+    one row a source of the crop set, all finite."""
+    from real_esrgan_tpu_torch.tools import grad_probe
+
+    t0 = time.perf_counter()
+    rows, _ = quiet(grad_probe.main, ["--weights", WEIGHTS, "--train-dir", train_dir,
+                                      "--draws", "2", "--batch", "8"])
+    seconds = time.perf_counter() - t0
+    sources = sorted(grad_probe.group_by_source(train_dir))
+    emit(research_tools={"tool": "grad_probe", "card": gpu, "seconds": seconds, "rows": rows})
+    check(sorted(rows) == sources, f"grad_probe's rows {sorted(rows)} are not {sources}")
+    for src, row in rows.items():
+        check(all(math.isfinite(v) for v in row.values()), f"grad_probe {src}: {row}")
+
+
+def _sha256(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def research_program(root: str, tmp: str, gpu: str) -> int:
+    """``tools/run_inenv10_program.sh`` with INENV10_ROOT=``root`` and
+    PROGRAM_ENV: rc 0; 8 score lines (4 tags x 2 sets), each PSNR finite;
+    both snapshots load through ``load_generator_params``; the committed
+    ``assets/*.npz`` unchanged (SHA-256).  Its CLIs log their K1 launches
+    (FUSED_RDB_LAUNCH_LOG): each eval_pair run launches 69 a pair.  Returns
+    the program's K1 launches."""
+    assets = {n: _sha256(os.path.join(ROOT, "assets", n))
+              for n in sorted(os.listdir(os.path.join(ROOT, "assets"))) if n.endswith(".npz")}
+    log = os.path.join(tmp, "fused_rdb_launches.jsonl")
+    env = dict(os.environ, INENV10_ROOT=root, PYTHON=sys.executable, FUSED_RDB_LAUNCH_LOG=log,
+               GPU_BUSY_LOCK=os.path.join(tmp, "gpu_busy.lock"), **PROGRAM_ENV)
+    t0 = time.perf_counter()
+    run = subprocess.run(["bash", PROGRAM], cwd=ROOT, env=env, capture_output=True, text=True,
+                         timeout=PROGRAM_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    scores_path = os.path.join(root, "results", "inenv10_scores.jsonl")
+    scores = []
+    for line in open(scores_path) if os.path.exists(scores_path) else []:
+        try:
+            scores.append(json.loads(line))
+        except json.JSONDecodeError:  # an eval_pair run that printed no summary
+            scores.append({"unparsed": line.strip()})
+    launches = ([json.loads(line) for line in open(log)] if os.path.exists(log) else [])
+    by_cli = {}
+    for entry in launches:
+        cli = os.path.splitext(os.path.basename(entry["argv"][0]))[0]
+        by_cli[cli] = by_cli.get(cli, 0) + entry["launches"]
+    data = os.path.join(root, "data", "InEnv10")
+    pairs = sum(len(os.listdir(os.path.join(data, d))) for d in ("eval_degraded/LRx4",
+                                                                  "eval/LRbicx4"))
+    snapshots = {}
+    for name in ("inenv10_esrnet_ema.npz", "inenv10_esrgan_ema.npz"):
+        path = os.path.join(root, "assets", name)
+        snapshots[name] = len(load_generator_params(path)) if os.path.exists(path) else 0
+    after = {n: _sha256(os.path.join(ROOT, "assets", n)) for n in assets}
+    emit(research_tools={"tool": "run_inenv10_program", "card": gpu, "rc": run.returncode,
+                         "seconds": seconds, "env": PROGRAM_ENV, "scores": scores,
+                         "fused_rdb_launches": by_cli, "snapshot_tensors": snapshots,
+                         "committed_assets_unchanged": after == assets,
+                         "printed": run.stdout.splitlines()[-12:]})
+    if run.returncode != 0:
+        for stage in ("s1", "s2"):
+            path = os.path.join(root, "results", f"inenv10_{stage}.log")
+            if os.path.exists(path):
+                print(f"# {stage} log tail:\n" + open(path).read()[-3000:], flush=True)
+    check(run.returncode == 0, f"the program exited {run.returncode}: {run.stderr[-2000:]}")
+    check(len(scores) == 8 and {(s.get("tag"), s.get("set")) for s in scores} == {
+        (t, s) for t in ("s1_ema", "s1_params", "gan_ema", "gan_params")
+        for s in ("degraded", "clean")}, f"the program's scores: {scores}")
+    check(all(math.isfinite(s["result"]["psnr_mean"]) for s in scores),
+          f"a score's PSNR is not finite: {scores}")
+    check(all(snapshots.values()), f"a snapshot does not load: {snapshots}")
+    check(after == assets, "the program changed the committed assets/*.npz")
+    check(by_cli.get("eval_pair") == 4 * RDBS_PER_FORWARD * pairs,
+          f"eval_pair launched K1 {by_cli.get('eval_pair')} times for 4 x {pairs} pairs")
+    return sum(by_cli.values())
+
+
+def drive_research_tools(tree_sr: np.ndarray, gpu: str) -> dict:
+    """The research tools on the card (docstring item 15), in a temporary
+    INENV10_ROOT.  Returns K1's launches by path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "inenv10")
+        data = os.path.join(root, "data", "InEnv10")
+        research_dataset(data, tmp, gpu)
+        launches = {"perf_lab_gen": research_perf_lab(gpu)}
+        torch.cuda.empty_cache()
+        research_tail_exp(gpu)
+        torch.cuda.empty_cache()
+        train_dir = os.path.join(data, "train")
+        research_nan_probe(train_dir, os.path.join(tmp, "nan_probe"), gpu)
+        research_grad_probe(train_dir, gpu)
+        torch.cuda.empty_cache()
+        launches["inenv10_program"] = research_program(root, tmp, gpu)
+    emit(research_tools_seconds=time.perf_counter() - t0)
+    return launches
+
+
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
@@ -2475,6 +2790,7 @@ def main() -> int:
     gan_launches = drive_gan(tree_sr, gpu)
     ddp_launches = drive_ddp(wide, outputs, gpu)
     front_end_launches = drive_front_end(tree, wide, tree_sr, gpu)
+    research_launches = drive_research_tools(tree_sr, gpu)
 
     f32_err = float(np.abs(outputs[torch.float32]["crop67x93"] - golden).max())
     bf16_psnr = psnr(outputs[torch.bfloat16]["crop67x93"], golden)
@@ -2486,7 +2802,7 @@ def main() -> int:
 
     trainers = {torch.bfloat16: {"train_validation": train_launches, **gan_launches,
                                  "tiled_devices": ddp_launches[torch.bfloat16],
-                                 **front_end_launches},
+                                 **front_end_launches, **research_launches},
                 torch.float32: {"train_validation": 0, "gan_validation": 0, "npz_snapshot": 0,
                                 "tiled_devices": ddp_launches[torch.float32]}}
     emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],

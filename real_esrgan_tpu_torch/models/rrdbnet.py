@@ -3,7 +3,8 @@ real_esrgan_tpu/models/rrdbnet.py.
 
 Same op graph as the JAX ``Generator``: optional pixel-unshuffle front end,
 3->64 conv, RRDB trunk, trunk conv plus global residual, two subpixel x2
-upconvs, two output convs, clamp to [0, 1].  The public layout is NHWC float
+upconvs (``subpixel=False``: nearest x2 upsample, then the 3x3 conv, on the
+same parameters), two output convs, clamp to [0, 1].  The public layout is NHWC float
 in [0, 1].  Inside, activations are NCHW tensors in ``channels_last`` memory,
 physically NHWC, so the fused RDB kernel reads and writes them with no copy.
 
@@ -312,7 +313,10 @@ class Generator(nn.Module):
     ``st_clamp`` (the JAX default) and the hard clamp's otherwise.
     ``plain_rdb`` runs the RDBs as ``rdb_plain`` (see ``ResidualDenseBlock``)
     and ``remat`` recomputes each RRDB in the backward pass; both are for
-    training, and the trainer sets them when it builds its model.  Weights
+    training, and the trainer sets them when it builds its model.
+    ``subpixel=False`` runs each x2 upconv as written (nearest upsample, 3x3
+    conv, LeakyReLU at the high resolution) where the default folds it into
+    one low-resolution conv: the same function of the same parameters.  Weights
     are drawn from ``generator`` (a ``torch.Generator``; seed 0 when None)
     with the JAX package's init functions."""
 
@@ -321,7 +325,7 @@ class Generator(nn.Module):
                  growth: int = 32, dtype: torch.dtype = torch.float32,
                  packed: bool = True, clamp: bool = True, device=None,
                  generator: Optional[torch.Generator] = None, st_clamp: bool = True,
-                 plain_rdb: bool = False, remat: bool = False):
+                 plain_rdb: bool = False, remat: bool = False, subpixel: bool = True):
         super().__init__()
         if upscale_factor not in (1, 2, 4):
             raise ValueError(f"upscale_factor must be 1, 2 or 4, not {upscale_factor}")
@@ -329,6 +333,7 @@ class Generator(nn.Module):
         self.unshuffle = {1: 4, 2: 2}.get(upscale_factor, 1)
         self.dtype = dtype
         self.clamp, self.st_clamp, self.remat = clamp, st_clamp, remat
+        self.subpixel = subpixel
         self.conv1 = Conv3x3(in_channels * self.unshuffle ** 2, channels, device)
         self.trunk = nn.ModuleList(RRDB(channels, growth, packed, device, plain_rdb)
                                    for _ in range(num_rrdb))
@@ -352,7 +357,10 @@ class Generator(nn.Module):
                 out = rrdb(out)
         out = out1 + self.conv2(out)
         for up in (self.upsampling1, self.upsampling2):
-            out = _subpixel_upconv(out, up[0].weight, up[0].bias)
+            if self.subpixel:
+                out = _subpixel_upconv(out, up[0].weight, up[0].bias)
+            else:
+                out = lrelu(up[0](F.interpolate(out, scale_factor=2, mode="nearest")))
         out = lrelu(self.conv3(out))
         out = self.conv4(out).float().permute(0, 2, 3, 1)
         if not self.clamp:

@@ -22,8 +22,9 @@ draws every random value into a ``DegradationDraws``: the per-batch choices
 on a CPU generator, as Python values, so the apply step never waits for the
 device to pick a branch; the per-sample tensors and the standard normals
 with the generator of the device they are used on.  ``apply_degradation`` is
-deterministic given the draws (but for the exact Poisson sampler, which takes
-a generator), so it can also run on the JAX package's own draws.
+deterministic given the draws, so it can also run on the JAX package's own
+draws; the exact Poisson sampler (``poisson_approx`` off) draws its counts
+from one seed a sample, which the draws carry.
 
 The blurs round where the JAX package's bf16 ``filter2d`` rounds; every
 float32 product and convolution runs in true float32 (``true_f32``).
@@ -48,7 +49,7 @@ from real_esrgan_tpu_torch.ops.blur_kernels import (
 )
 from real_esrgan_tpu_torch.ops.diffjpeg import diff_jpeg
 from real_esrgan_tpu_torch.ops.filter2d import filter2d
-from real_esrgan_tpu_torch.ops.noise import gaussian_noise, poisson_noise
+from real_esrgan_tpu_torch.ops.noise import draw_poisson_seeds, gaussian_noise, poisson_noise
 from real_esrgan_tpu_torch.ops.resize import INV_255, resize_dynamic_static_method
 from real_esrgan_tpu_torch.ops.usm import gaussian_kernel_1d, usm_sharpen
 
@@ -57,8 +58,10 @@ from real_esrgan_tpu_torch.ops.usm import gaussian_kernel_1d, usm_sharpen
 class NoiseDraws:
     """One noise stage: ``gaussian`` (the batch's family, else Poisson),
     per-sample ``gray`` mask (1.0: luma noise), ``sigma`` (255-range) and
-    Poisson ``scale``, and the standard normals of the stage's canvas, colour
-    (B, C, C, 3) and gray (B, C, C, 1), which either family uses."""
+    Poisson ``scale``, the standard normals of the stage's canvas, colour
+    (B, C, C, 3) and gray (B, C, C, 1), which either family uses, and, for
+    the exact Poisson sampler only, ``poisson_seed``: one int64 seed a
+    sample (None when ``poisson_approx`` is on)."""
 
     gaussian: bool
     gray: torch.Tensor
@@ -66,6 +69,7 @@ class NoiseDraws:
     scale: torch.Tensor
     normal: torch.Tensor
     normal_gray: torch.Tensor
+    poisson_seed: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -158,7 +162,8 @@ def draws_from_arrays(arrays) -> DegradationDraws:
     def noise(prefix):
         return NoiseDraws(gaussian=bool(arrays[f"{prefix}.gaussian"]),
                           **{k: tensor(f"{prefix}.{k}")
-                             for k in ("gray", "sigma", "scale", "normal", "normal_gray")})
+                             for k in ("gray", "sigma", "scale", "normal", "normal_gray",
+                                       "poisson_seed") if f"{prefix}.{k}" in arrays})
 
     orientation = (tuple(tensor(f"orientation.{i}") for i in range(3))
                    if "orientation.0" in arrays else None)
@@ -245,7 +250,9 @@ def draw_degradation(generator: Optional[torch.Generator], batch: int, geo: Pipe
     ``generator`` draws the per-sample tensors and the normals on ``device``
     (its own device when ``device`` is None); ``host_generator``, a CPU
     generator, draws the per-batch choices, and defaults to ``generator``
-    when that is a CPU generator."""
+    when that is a CPU generator.  With ``dcfg.poisson_approx`` off, the
+    exact sampler's seeds are drawn last, so every other draw is the same
+    in both modes."""
     device = torch.device(device) if device is not None else (
         generator.device if generator is not None else torch.device("cpu"))
     if host_generator is None:
@@ -261,7 +268,7 @@ def draw_degradation(generator: Optional[torch.Generator], batch: int, geo: Pipe
 
     crop_top, crop_left = draw_crop_corners(generator, b, (geo.hr_size, geo.hr_size),
                                             geo.crop_size, geo.scale, device)
-    return DegradationDraws(
+    draws = DegradationDraws(
         orientation=random_orientation(generator, b, device) if augment else None,
         kernel1=draw_stage_kernels(generator, b, kcfg, 1, device),
         kernel2=draw_stage_kernels(generator, b, kcfg, 2, device),
@@ -273,6 +280,10 @@ def draw_degradation(generator: Optional[torch.Generator], batch: int, geo: Pipe
                            dcfg.poisson_scale_range2, dcfg.gray_noise_prob2, device),
         quality1=uniform(*dcfg.jpeg_range1), quality2=uniform(*dcfg.jpeg_range2),
         crop_top=crop_top, crop_left=crop_left, **batch_choices)
+    if not dcfg.poisson_approx:
+        for noise in (draws.noise1, draws.noise2):
+            noise.poisson_seed = draw_poisson_seeds(generator, b, device)
+    return draws
 
 
 def generator_seed(*words: int) -> int:
@@ -295,15 +306,17 @@ def _batched_resize(images: torch.Tensor, in_extent: int, out_extent: int,
                                         (out_canvas, out_canvas), method, reciprocal_out=final)
 
 
-def _mixed_noise(image: torch.Tensor, draws: NoiseDraws, poisson_approx: bool,
-                 generator: Optional[torch.Generator]) -> torch.Tensor:
+def _mixed_noise(image: torch.Tensor, draws: NoiseDraws, poisson_approx: bool) -> torch.Tensor:
     """The batch's noise family on every sample, with its strengths and gray
     masks; clipped to [0, 1]."""
     if draws.gaussian:
         noise = gaussian_noise(image, draws.sigma, draws.gray, draws.normal, draws.normal_gray)
     else:
+        if not poisson_approx and draws.poisson_seed is None:
+            raise ValueError("the exact Poisson sampler needs draws made with poisson_approx "
+                             "off (they carry its seeds)")
         noise = poisson_noise(image, draws.scale, draws.gray, poisson_approx, draws.normal,
-                              draws.normal_gray, generator)
+                              draws.normal_gray, draws.poisson_seed)
     return torch.clamp(image + noise, 0.0, 1.0)
 
 
@@ -313,17 +326,15 @@ def _blur(image: torch.Tensor, kernels: torch.Tensor) -> torch.Tensor:
 
 def apply_degradation(hr_uint8: torch.Tensor, draws: DegradationDraws, geo: PipelineGeometry,
                       kcfg: KernelSynthesisConfig, dcfg: DegradationConfig,
-                      up1: bool = False, up2: bool = False,
-                      generator: Optional[torch.Generator] = None
+                      up1: bool = False, up2: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Synthesize (lr, hr) pairs from HR crops with the given draws.
 
     Args:
         hr_uint8: (B, hr_size, hr_size, 3) uint8 RGB (or float in [0, 1]).
         draws: ``draw_degradation``'s draws for this batch, on the input's
-            device, at the canvases of ``up1``/``up2``.
-        generator: the exact Poisson sampler's (``dcfg.poisson_approx``
-            False); unused otherwise.
+            device, at the canvases of ``up1``/``up2``, made with the same
+            ``dcfg.poisson_approx``.
 
     Returns:
         lr: (B, lr_crop, lr_crop, 3) float32 in [0, 1], on 8-bit levels.
@@ -347,7 +358,7 @@ def apply_degradation(hr_uint8: torch.Tensor, draws: DegradationDraws, geo: Pipe
     out = _blur(out, k1)
     extent1 = _extent(hr_size, draws.scale1)
     out = _batched_resize(out, hr_size, extent1, c1, draws.method1)
-    out = _mixed_noise(out, draws.noise1, dcfg.poisson_approx, generator)
+    out = _mixed_noise(out, draws.noise1, dcfg.poisson_approx)
     out = diff_jpeg(torch.clamp(out, 0.0, 1.0), draws.quality1)
 
     # ---------------- second-order degradation ----------------
@@ -355,7 +366,7 @@ def apply_degradation(hr_uint8: torch.Tensor, draws: DegradationDraws, geo: Pipe
         out = _blur(out, k2)
     extent2 = _extent(lr_size, draws.scale2)
     out = _batched_resize(out, extent1, extent2, c2, draws.method2)
-    out = _mixed_noise(out, draws.noise2, dcfg.poisson_approx, generator)
+    out = _mixed_noise(out, draws.noise2, dcfg.poisson_approx)
 
     # ---------------- final stage, in the batch's order ----------------
     if draws.order:      # resize -> sinc -> JPEG
@@ -384,4 +395,4 @@ def degrade(generator: Optional[torch.Generator], hr_uint8: torch.Tensor, geo: P
     ``dcfg.resize_probs{1,2}[0]``: they pick the canvas sizes."""
     draws = draw_degradation(generator, hr_uint8.shape[0], geo, kcfg, dcfg, up1, up2, augment,
                              host_generator, hr_uint8.device)
-    return apply_degradation(hr_uint8, draws, geo, kcfg, dcfg, up1, up2, generator)
+    return apply_degradation(hr_uint8, draws, geo, kcfg, dcfg, up1, up2)

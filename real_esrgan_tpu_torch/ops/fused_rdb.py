@@ -29,11 +29,20 @@ the flax block's 'same' convs make it.
 ``rdb_plain`` is the same function in plain PyTorch.  ``fused_rdb`` takes it
 only for a tensor on the CPU; on a CUDA tensor it launches the kernel or
 raises.
+
+A process started with ``FUSED_RDB_LAUNCH_LOG=<file>`` in its environment
+appends one JSON line to that file as it exits, ``{"pid", "argv",
+"launches"}``, so that a parent counts the kernel's launches in the
+processes it starts (a CLI in a shell script, say).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
+import json
+import os
+import sys
 from typing import Sequence, Tuple
 
 import torch
@@ -404,3 +413,13 @@ def fused_rdb(x: torch.Tensor, packed: Sequence[torch.Tensor], split=None,
 
 
 fused_rdb.launches = 0
+
+
+def _log_launches(path: str) -> None:
+    with open(path, "a") as f:
+        f.write(json.dumps({"pid": os.getpid(), "argv": sys.argv,
+                            "launches": fused_rdb.launches}) + "\n")
+
+
+if os.environ.get("FUSED_RDB_LAUNCH_LOG"):
+    atexit.register(_log_launches, os.environ["FUSED_RDB_LAUNCH_LOG"])

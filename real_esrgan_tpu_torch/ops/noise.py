@@ -3,7 +3,9 @@ real_esrgan_tpu/ops/noise.py.
 
 Per-sample noise strengths, gray-noise blending and the reference's Poisson
 unique-level scaling.  The samplers take their standard normals as inputs,
-so the same noise can be applied from the JAX package's draws; the
+so the same noise can be applied from the JAX package's draws; the exact
+Poisson sampler takes one seed a sample instead (``draw_poisson_seeds``), so
+a sample's counts do not depend on the batch it is drawn in.  The
 ``random_add_*`` functions draw them with a torch generator.  The distinct
 8-bit levels of each sample are counted exactly by a scatter into (B, 256).
 """
@@ -51,8 +53,31 @@ def gaussian_noise(image: torch.Tensor, sigma: torch.Tensor, gray_mask: torch.Te
     return noise * (1.0 - g) + noise_gray * g
 
 
+def draw_poisson_seeds(generator: Optional[torch.Generator], batch: int, device) -> torch.Tensor:
+    """One int64 seed a sample for the exact Poisson sampler, (B,), on ``device``."""
+    return torch.randint(0, torch.iinfo(torch.int64).max, (batch,), generator=generator,
+                         device=device, dtype=torch.int64)
+
+
+def exact_poisson_counts(rates: torch.Tensor, rates_gray: torch.Tensor,
+                         seeds: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact Poisson counts of the colour ``rates`` (B, H, W, C) and the gray
+    ``rates_gray`` (B, H, W, 1): sample i's colour counts, then its gray
+    counts, drawn by ``torch.poisson`` from one generator on the rates'
+    device seeded by ``seeds[i]``.  A sample's counts so depend on its seed
+    alone, and a data-parallel rank that applies its slice of the global
+    batch's draws gets the counts one process gets on the whole batch.  Two
+    ``torch.poisson`` calls a sample, and one read of the seeds to the host."""
+    counts, counts_gray = torch.empty_like(rates), torch.empty_like(rates_gray)
+    for i, seed in enumerate(seeds.tolist()):
+        generator = torch.Generator(device=rates.device).manual_seed(seed)
+        counts[i] = torch.poisson(rates[i], generator=generator)
+        counts_gray[i] = torch.poisson(rates_gray[i], generator=generator)
+    return counts, counts_gray
+
+
 def _poisson_residual(rates: torch.Tensor, approx: bool, z: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Poisson(rates) - rates.
 
     approx=True maps ONE standard normal ``z`` per element to a Poisson-like
@@ -67,10 +92,10 @@ def _poisson_residual(rates: torch.Tensor, approx: bool, z: Optional[torch.Tenso
       so the card and the CPU (whose float32 ``ndtr`` and ``exp`` differ in
       the last bit) pick the same atom.
 
-    approx=False draws exact counts with ``torch.poisson`` and ``generator``.
+    approx=False takes the exact ``counts`` (``exact_poisson_counts``).
     """
     if not approx:
-        return torch.poisson(rates, generator=generator) - rates
+        return counts - rates
     cf = torch.round(rates + z * correct_sqrt(rates) + (z * z - 1.0) * reciprocal(6.0))
     cf = torch.clamp(cf, min=0.0)
 
@@ -95,23 +120,25 @@ def _quantize(image: torch.Tensor) -> torch.Tensor:
 def poisson_noise(image: torch.Tensor, scale: torch.Tensor, gray_mask: torch.Tensor,
                   approx: bool = False, normal: Optional[torch.Tensor] = None,
                   normal_gray: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                  seeds: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-sample Poisson (shot) noise scaled by ``scale``, as the
     reference's ``_generate_poisson_noise_torch``: quantize to 8 bits,
     count the levels, draw Poisson(image * vals) / vals - image.
 
     ``approx`` takes the standard normals ``normal`` (B, H, W, C) and
-    ``normal_gray`` (B, H, W, 1); the exact sampler takes ``generator``.
-    The gray path counts the levels of the luma of the unquantized image.
+    ``normal_gray`` (B, H, W, 1); the exact sampler takes ``seeds``, one a
+    sample (``draw_poisson_seeds``).  The gray path counts the levels of the
+    luma of the unquantized image.
     """
     b = image.shape[0]
     img_q = _quantize(image)
     vals = _vals_from_unique(_unique_levels(img_q)).reshape(b, 1, 1, 1)
-    noise = _poisson_residual(img_q * vals, approx, normal, generator) / vals
-
     gray_q = _quantize(rgb_to_grayscale(image))
     vals_g = _vals_from_unique(_unique_levels(gray_q)).reshape(b, 1, 1, 1)
-    noise_gray = _poisson_residual(gray_q * vals_g, approx, normal_gray, generator) / vals_g
+    rates, rates_gray = img_q * vals, gray_q * vals_g
+    counts, counts_gray = (None, None) if approx else exact_poisson_counts(rates, rates_gray, seeds)
+    noise = _poisson_residual(rates, approx, normal, counts) / vals
+    noise_gray = _poisson_residual(rates_gray, approx, normal_gray, counts_gray) / vals_g
 
     g = gray_mask.reshape(b, 1, 1, 1)
     noise = noise * (1.0 - g) + noise_gray * g
@@ -157,5 +184,6 @@ def random_add_poisson_noise(generator, image: torch.Tensor, scale_range: Tuple[
                              rounds: bool = False) -> torch.Tensor:
     """The reference's ``random_add_poisson_noise_torch`` (exact sampler)."""
     scale, gray = _strengths(generator, image.shape[0], scale_range, gray_prob, image.device)
-    out = image + poisson_noise(image, scale, gray, generator=generator)
+    seeds = draw_poisson_seeds(generator, image.shape[0], image.device)
+    out = image + poisson_noise(image, scale, gray, seeds=seeds)
     return _finalize(out, clip, rounds)

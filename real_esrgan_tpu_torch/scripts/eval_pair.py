@@ -28,7 +28,7 @@ from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
 from real_esrgan_tpu_torch.utils.imgio import load_image_rgb, natsorted_files
 
 
-def main(argv=None) -> dict:
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--weights",
                    help="reference .pth.tar or .npz snapshot (omit with --bicubic)")
@@ -43,6 +43,11 @@ def main(argv=None) -> dict:
                    help="score raw params instead of EMA (EMA stays near the init "
                         "for the first few thousand steps; short runs must use this)")
     p.add_argument("--cpu", action="store_true", help="Run on the CPU instead of CUDA.")
+    return p
+
+
+def main(argv=None) -> dict:
+    p = build_parser()
     a = p.parse_args(argv)
     device = resolve_device(a.cpu)
 

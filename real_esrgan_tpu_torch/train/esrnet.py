@@ -131,9 +131,7 @@ def degrade_for_step(step: int, hr_uint8: torch.Tensor, geo: PipelineGeometry,
     its draws made on ``hr_uint8``'s device from ``(seed + 1, step)``.
     ``hr_uint8`` is rank ``rank_``'s slice of a global batch ``world`` times
     its size: the draws are the global batch's, and the rank applies its
-    slice of them.  (The exact Poisson sampler, ``poisson_approx`` off, draws
-    its counts from the rank's generator as it goes, so only the default
-    approximate sampler gives the global batch's noise.)"""
+    slice of them, the exact Poisson sampler's seeds among them."""
     s = generator_seed(seed + 1, step)
     generator = torch.Generator(device=hr_uint8.device).manual_seed(s)
     host = torch.Generator().manual_seed(s)
@@ -142,7 +140,7 @@ def degrade_for_step(step: int, hr_uint8: torch.Tensor, geo: PipelineGeometry,
         draws = draw_degradation(generator, batch * world, geo, kcfg, dcfg, up1, up2,
                                  augment=True, host_generator=host, device=hr_uint8.device)
         draws = slice_draws(draws, rank_ * batch, (rank_ + 1) * batch)
-        return apply_degradation(hr_uint8, draws, geo, kcfg, dcfg, up1, up2, generator)
+        return apply_degradation(hr_uint8, draws, geo, kcfg, dcfg, up1, up2)
 
 
 def mean_over_ranks(grads: Tensors, terms: Tensors) -> Tuple[Tensors, Tensors]:

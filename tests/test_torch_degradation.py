@@ -23,6 +23,7 @@ card to; ``test_golden_regenerates_exactly`` keeps it equal to the JAX
 package.
 """
 
+import dataclasses
 import functools
 import math
 import os
@@ -323,16 +324,27 @@ def test_degrade_is_deterministic_per_seed_and_quantized():
 
 
 def test_exact_poisson_sampler_runs_with_its_generator():
+    """The exact sampler's counts come from the seeds the draws carry (drawn
+    by the draws' generator, one a sample): the same draws give the same
+    output, other seeds another; draws made with the approximate sampler
+    carry none, and the exact sampler refuses them."""
     geo = tcfg.PipelineGeometry(hr_size=64, crop_size=32, scale=4)
     dcfg = tcfg.DegradationConfig(poisson_approx=False, gaussian_noise_prob1=0.0,
                                   gaussian_noise_prob2=0.0)
     hr = torch.from_numpy(smooth_batch(2, 64, 4))
     draws = tdeg.draw_degradation(torch.Generator().manual_seed(1), 2, geo, TKCFG, dcfg)
     assert not draws.noise1.gaussian and not draws.noise2.gaussian
-    outs = [tdeg.apply_degradation(hr, draws, geo, TKCFG, dcfg,
-                                   generator=torch.Generator().manual_seed(s))[0]
-            for s in (1, 1, 2)]
+    assert draws.noise1.poisson_seed.dtype == torch.int64
+    assert draws.noise1.poisson_seed.shape == draws.noise2.poisson_seed.shape == (2,)
+    reseeded = dataclasses.replace(
+        draws, noise1=dataclasses.replace(draws.noise1, poisson_seed=draws.noise1.poisson_seed + 1))
+    outs = [tdeg.apply_degradation(hr, d, geo, TKCFG, dcfg)[0] for d in (draws, draws, reseeded)]
     assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    approx_draws = tdeg.draw_degradation(torch.Generator().manual_seed(1), 2, geo, TKCFG,
+                                         dataclasses.replace(dcfg, poisson_approx=True))
+    assert approx_draws.noise1.poisson_seed is None
+    with pytest.raises(ValueError, match="poisson_approx"):
+        tdeg.apply_degradation(hr, approx_draws, geo, TKCFG, dcfg)
 
 
 def test_draws_round_trip_through_arrays():

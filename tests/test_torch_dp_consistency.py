@@ -35,6 +35,8 @@ Each multi-process run is bounded by ``TIMEOUT`` seconds and retried once
 only when a rank never joined the group (``launch_local``).
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -286,3 +288,74 @@ def test_the_pool_is_refused_across_hosts(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="single-host only"):
         trainer.make_train_loader([], 2, TrainConfig(loader="device"),
                                   PipelineGeometry(16, 16, 4), "cpu")
+
+
+DEGRADE_GEO = PipelineGeometry(hr_size=64, crop_size=32, scale=4)
+# ``degrade_for_step``'s draws (a SHA-256 over ``draws_to_arrays``, keys
+# sorted) and outputs (8-bit levels) at step 3, seed 0, batch 4, hr 64 ->
+# crop 32, with the default (approximate) Poisson sampler, for (up1, up2) =
+# (0, 1) and (1, 0), as the tree gave them before the exact sampler's seeds
+# joined the draws; the input is ``_degrade_input()``
+DEGRADE_GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                              "torch_degrade_for_step_b4_hr64.npz")
+
+
+def _degrade_input() -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(16).integers(0, 256, (4, 64, 64, 3),
+                                                                dtype=np.uint8))
+
+
+@pytest.mark.parametrize("flags", [(False, True), (True, False), (True, True)])
+def test_exact_poisson_ranks_degrade_the_global_batch(flags):
+    """With the exact Poisson sampler (``poisson_approx`` off, both noise
+    stages Poisson), ranks 0 and 1 of two each degrade their half of the
+    global batch, and their outputs, concatenated, are the bits of one
+    process degrading the whole batch: each sample's counts come from its
+    own seed among the global batch's draws."""
+    from real_esrgan_tpu_torch.configuration import DegradationConfig, KernelSynthesisConfig
+    from real_esrgan_tpu_torch.train.esrnet import degrade_for_step
+
+    dcfg = DegradationConfig(poisson_approx=False, gaussian_noise_prob1=0.0,
+                             gaussian_noise_prob2=0.0)
+    kcfg, hr = KernelSynthesisConfig(), _degrade_input()
+    whole = degrade_for_step(5, hr, DEGRADE_GEO, kcfg, dcfg, 0, *flags)
+    halves = [degrade_for_step(5, hr[2 * r:2 * r + 2], DEGRADE_GEO, kcfg, dcfg, 0, *flags,
+                               rank_=r, world=2) for r in (0, 1)]
+    for i in (0, 1):
+        assert torch.equal(torch.cat([h[i] for h in halves]), whole[i])
+    # the sampler draws counts a sample: another rank's slice is another noise
+    assert not torch.equal(halves[0][0], halves[1][0])
+
+
+@pytest.mark.parametrize("flags", [(False, True), (True, False)])
+def test_default_sampler_draws_and_outputs_are_unchanged(flags):
+    """The default approximate sampler draws no seeds: its draws and its
+    degraded pairs are the bits recorded before the exact sampler's seeds
+    were added (``DEGRADE_GOLDEN``)."""
+    import hashlib
+
+    from real_esrgan_tpu_torch.configuration import DegradationConfig, KernelSynthesisConfig
+    from real_esrgan_tpu_torch.ops.degradation import (
+        draw_degradation, draws_to_arrays, generator_seed,
+    )
+    from real_esrgan_tpu_torch.train.esrnet import degrade_for_step
+
+    kcfg, dcfg = KernelSynthesisConfig(), DegradationConfig()
+    assert dcfg.poisson_approx
+    golden, tag = np.load(DEGRADE_GOLDEN), f"{int(flags[0])}{int(flags[1])}"
+    seed = generator_seed(1, 3)
+    draws = draw_degradation(torch.Generator().manual_seed(seed), 4, DEGRADE_GEO, kcfg, dcfg,
+                             *flags, augment=True,
+                             host_generator=torch.Generator().manual_seed(seed), device="cpu")
+    arrays = draws_to_arrays(draws)
+    assert not any("poisson_seed" in key for key in arrays)
+    digest = hashlib.sha256()
+    for key in sorted(arrays):
+        digest.update(key.encode())
+        digest.update(np.ascontiguousarray(arrays[key]).tobytes())
+    assert digest.hexdigest() == str(golden[f"draws_sha256_{tag}"])
+    lr, hr = degrade_for_step(3, _degrade_input(), DEGRADE_GEO, kcfg, dcfg, 0, *flags)
+    np.testing.assert_array_equal(np.round(lr.numpy() * 255).astype(np.uint8),
+                                  golden[f"lr_levels_{tag}"])
+    np.testing.assert_array_equal(np.round(hr.numpy() * 255).astype(np.uint8),
+                                  golden[f"hr_levels_{tag}"])

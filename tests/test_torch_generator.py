@@ -106,3 +106,44 @@ def test_init_draws_from_the_explicit_generator():
     # the RDB init is kaiming_normal * 0.1: std sqrt(2 / fan_in) / 10
     std = sa["trunk.0.rdb1.conv5.weight"].std().item()
     assert abs(std - 0.1 * (2.0 / (9 * 192)) ** 0.5) < 2e-4
+
+
+def _narrow_pair(subpixel: bool):
+    """JAX's and the port's Generator (2 RRDBs x 16 channels, growth 8, f32)
+    with ``subpixel``, on JAX's init carried across, and one input."""
+    x = np.random.default_rng(11).random((2, 20, 28, 3)).astype(np.float32)
+    jmodel = JaxGenerator(num_rrdb=2, channels=16, growth=8, subpixel=subpixel)
+    params = jax.device_get(jmodel.init(jax.random.PRNGKey(11), jnp.asarray(x))["params"])
+    model = Generator(num_rrdb=2, channels=16, growth=8, subpixel=subpixel, device="cpu").eval()
+    model.load_state_dict(state_dict_from_jax_params(params))
+    return jmodel, params, model, x
+
+
+def test_no_subpixel_matches_jax_no_subpixel():
+    """``Generator(subpixel=False)``: nearest x2 upsample, 3x3 conv and
+    LeakyReLU at the high resolution, against JAX's on the same weights:
+    max abs <= 1e-4 (f32)."""
+    jmodel, params, model, x = _narrow_pair(subpixel=False)
+    ref = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        out = model(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == (2, 80, 112, 3)
+    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=0)
+
+
+def test_subpixel_and_upsample_forms_agree():
+    """The folded low-resolution upconv (the default) and the upsample-then-
+    conv form compute one function of the same parameters: max abs <= 1e-4
+    (f32), on the raw output as well as the clamped one."""
+    _, _, model, x = _narrow_pair(subpixel=True)
+    plain = Generator(num_rrdb=2, channels=16, growth=8, subpixel=False, clamp=False,
+                      device="cpu").eval()
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        folded = model(torch.from_numpy(x))
+        model.clamp = False
+        raw = model(torch.from_numpy(x))
+        unfolded = plain(torch.from_numpy(x))
+    assert model.subpixel and not plain.subpixel
+    np.testing.assert_allclose(raw.numpy(), unfolded.numpy(), atol=1e-4, rtol=0)
+    np.testing.assert_allclose(folded.numpy(), unfolded.clamp(0, 1).numpy(), atol=1e-4, rtol=0)

@@ -47,5 +47,7 @@ def test_port_and_chip_smoke_import_no_jax():
                    "data.device_pool", "data.native_loader", "data.grain_loader",
                    "parallel", "parallel.mesh", "tools.dp_check", "utils.profiling", "bench",
                    "scripts.serve_http", "graft_entry", "scripts.validate_parity",
-                   "scripts.make_lr", "tools.tile_sweep"):
+                   "scripts.make_lr", "tools.tile_sweep", "scripts.snapshot_weights",
+                   "tools.make_inenv_dataset", "tools.perf_lab", "tools.tail_exp",
+                   "tools.nan_probe", "tools.explode_analysis", "tools.grad_probe"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

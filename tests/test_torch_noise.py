@@ -106,6 +106,13 @@ def _skew(x):
     return (x ** 3).mean() / (x ** 2).mean() ** 1.5
 
 
+def _exact_rates(image):
+    """The colour and gray rates ``poisson_noise`` gives the exact sampler."""
+    img_q, gray_q = tn._quantize(image), tn._quantize(tn.rgb_to_grayscale(image))
+    return [q * tn._vals_from_unique(tn._unique_levels(q)).reshape(-1, 1, 1, 1)
+            for q in (img_q, gray_q)]
+
+
 def test_exact_poisson_matches_jax_moments():
     """torch.poisson against jax.random.poisson, and the port's approximate
     sampler against its exact one, in mean, variance and skewness, as
@@ -116,9 +123,14 @@ def test_exact_poisson_matches_jax_moments():
     for image, skew_tol in ((img, 0.03), (dark, 0.08)):
         ref = np.asarray(jn.poisson_noise(jax.random.PRNGKey(7), jnp.asarray(image),
                                           jnp.ones(1), jnp.zeros(1), approx=False))
-        gen = torch.Generator().manual_seed(7)
+        # the sample's seed is 7: its counts are those torch.poisson draws from a
+        # generator seeded 7, colour then gray; the approximate sampler's
+        # normals follow them in that generator's stream
         exact = tn.poisson_noise(torch.from_numpy(image), torch.ones(1), torch.zeros(1),
-                                 generator=gen).numpy()
+                                 seeds=torch.tensor([7])).numpy()
+        gen = torch.Generator().manual_seed(7)
+        for rates in _exact_rates(torch.from_numpy(image)):
+            torch.poisson(rates[0], generator=gen)
         z, zg = (torch.randn(s, generator=gen) for s in (image.shape, image.shape[:3] + (1,)))
         approx = tn.poisson_noise(torch.from_numpy(image), torch.ones(1), torch.zeros(1), True,
                                   z, zg).numpy()

@@ -156,7 +156,24 @@
    epoch a stage in that directory (rc 0, 8 finite scores, both snapshots
    load, the committed ``assets/*.npz`` unchanged); the RDB kernel's launches
    of ``perf_lab gen`` and of the program's CLIs (``FUSED_RDB_LAUNCH_LOG``)
-   join ``fused_rdb_launches`` and the ``kernels`` line.
+   join ``fused_rdb_launches`` and the ``kernels`` line;
+16. after the autograd guard, the Orbax phase: builds the port's zstd
+   decoder (``csrc/zstd_decode.cpp``, g++) and prints its build line; reads
+   every checkpoint fixture of ``tests/data/jax_orbax`` (the JAX trainers'
+   Orbax directories) and holds each leaf to ``leaves.json``; serves the
+   test image through ``SRPipeline`` from the full-width one-RRDB Orbax
+   directory ``g_c64_b1`` in bfloat16 and float32 (3 RDB kernel launches
+   each, counted) and holds the output, bit for bit, to the same pipeline
+   loaded from ``assets/inenv10_esrnet_ema.npz`` cut to ``trunk_0``; runs
+   ``python -m real_esrgan_tpu_torch.scripts.eval_pair`` on that directory
+   and the evaluation pairs of step 6 (its launches through
+   ``FUSED_RDB_LAUNCH_LOG``); resumes the narrow stage-1 and stage-2 states
+   on the card through the trainers' ``resume_state`` /
+   ``resume_generator`` / ``resume_discriminator`` and takes one float32
+   step each (finite losses; ``step``, Adam's ``count`` and the guard's
+   ``lr_scale`` carry on from the JAX values); and times the decoder on
+   every zstd frame of the fixtures for at least a second (MB/s on this
+   host).
 
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  f32 phases run with TF32
@@ -208,7 +225,10 @@ from real_esrgan_tpu_torch.scripts import eval_pair, make_degraded_eval
 from real_esrgan_tpu_torch.serve import SRPipeline
 from real_esrgan_tpu_torch.tools import conv_exp, dp_check
 from real_esrgan_tpu_torch.train.checkpoint import load_checkpoint, load_generator_params
+from real_esrgan_tpu_torch.utils import zstd
 from real_esrgan_tpu_torch.utils.imgio import load_image_rgb, read_png, write_png
+from real_esrgan_tpu_torch.utils.ocdbt import OcdbtStore
+from real_esrgan_tpu_torch.utils.orbax_read import read_pytree
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz")
@@ -840,6 +860,19 @@ def drive_conv_exp() -> dict:
     return launches
 
 
+def write_eval_pairs(tree: np.ndarray, root: str) -> tuple:
+    """EVAL_CROPS of the test image as LR PNGs and their x4 MATLAB-bicubic
+    upscales as HR PNGs, under ``root``/lr and ``root``/hr."""
+    lr_dir, hr_dir = os.path.join(root, "lr"), os.path.join(root, "hr")
+    os.makedirs(lr_dir), os.makedirs(hr_dir)
+    for name, (top, left, h, w) in EVAL_CROPS.items():
+        lr = np.ascontiguousarray(tree[top:top + h, left:left + w])
+        hr = matlab_resize(torch.from_numpy(lr).cuda(), 4.0).clamp(0, 1).cpu().numpy()
+        write_png(os.path.join(lr_dir, name), np.round(lr * 255.0).astype(np.uint8))
+        write_png(os.path.join(hr_dir, name), np.round(hr * 255.0).astype(np.uint8))
+    return lr_dir, hr_dir
+
+
 def drive_eval(tree: np.ndarray, rdb_shapes: dict) -> dict:
     """The evaluation entry points on three crops of the test image at full
     width and depth, with the RDB kernel's input shapes added to
@@ -848,13 +881,7 @@ def drive_eval(tree: np.ndarray, rdb_shapes: dict) -> dict:
     seen = {dtype: set() for dtype in rdb_shapes}
     hook = record_rdb_shapes(seen)
     with tempfile.TemporaryDirectory() as tmp:
-        lr_dir, hr_dir = os.path.join(tmp, "lr"), os.path.join(tmp, "hr")
-        os.makedirs(lr_dir), os.makedirs(hr_dir)
-        for name, (top, left, h, w) in EVAL_CROPS.items():
-            lr = np.ascontiguousarray(tree[top:top + h, left:left + w])
-            hr = matlab_resize(torch.from_numpy(lr).cuda(), 4.0).clamp(0, 1).cpu().numpy()
-            write_png(os.path.join(lr_dir, name), np.round(lr * 255.0).astype(np.uint8))
-            write_png(os.path.join(hr_dir, name), np.round(hr * 255.0).astype(np.uint8))
+        lr_dir, hr_dir = write_eval_pairs(tree, tmp)
 
         def run(label, dtype, call):
             fused_rdb.launches = 0
@@ -2661,6 +2688,270 @@ def drive_research_tools(tree_sr: np.ndarray, gpu: str) -> dict:
     return launches
 
 
+ORBAX_DATA = os.path.join(ROOT, "tests", "data", "jax_orbax")
+ORBAX_FIXTURES = ("g_c64_b1", "esrnet_c16/g_epoch_1", "gan_c16/g_epoch_1", "gan_c16/d_epoch_1")
+ORBAX_G = os.path.join(ORBAX_DATA, "g_c64_b1")
+# the narrow runs of tests/_make_orbax_fixtures.py, which wrote the fixtures
+ORBAX_NARROW = dict(num_rrdb=1, channels=16, growth_channels=4)
+ORBAX_D_CHANNELS = 4
+ORBAX_VGG_NODES = ("conv1_2", "conv2_2")
+ORBAX_STEPS_PER_EPOCH = 10
+ORBAX_DECODE_SECONDS = 1.0
+
+
+def _orbax_leaves(tree, prefix=()):
+    """(path, leaf) pairs of a tree read by ``read_pytree``, in the order and
+    with the names of ``leaves.json``."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _orbax_leaves(tree[k], prefix + (str(k),))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _orbax_leaves(v, prefix + (str(i),))
+    else:
+        yield "/".join(prefix), tree
+
+
+def orbax_build(gpu: str) -> None:
+    """Builds the zstd decoder (g++, at first use) and prints its build line."""
+    from real_esrgan_tpu_torch.utils import native_build
+    lib = native_build.library_path(zstd.SOURCE, native_build.BUILD_DIR, "zstd_decode",
+                                    zstd.CXXFLAGS)
+    built_before = lib.exists()
+    t0 = time.perf_counter()
+    zstd.library()
+    seconds = time.perf_counter() - t0
+    compiler = subprocess.run([os.environ.get("CXX", "g++"), "--version"], capture_output=True,
+                              text=True, timeout=60).stdout.splitlines()[0]
+    emit(orbax_build={"card": gpu, "source": os.path.relpath(zstd.SOURCE, ROOT),
+                      "library": lib.name, "compiler": compiler, "flags": list(zstd.CXXFLAGS),
+                      "built_here": not built_before, "seconds": round(seconds, 3)})
+    check(lib.exists(), f"the decoder was not built at {lib}")
+
+
+def orbax_read_fixtures() -> None:
+    """Every fixture's every leaf against leaves.json (dtype, shape, SHA-256)."""
+    import hashlib
+    with open(os.path.join(ORBAX_DATA, "leaves.json")) as f:
+        expected = json.load(f)
+    read = {}
+    for name in ORBAX_FIXTURES:
+        t0 = time.perf_counter()
+        leaves = list(_orbax_leaves(read_pytree(os.path.join(ORBAX_DATA, name))))
+        ms = (time.perf_counter() - t0) * 1e3
+        check([p for p, _ in leaves] == [leaf["path"] for leaf in expected[name]],
+              f"{name}: the leaves' paths differ from leaves.json")
+        for (path, value), leaf in zip(leaves, expected[name]):
+            if leaf["dtype"] is None:
+                check(value is None, f"{name}/{path} is not None")
+                continue
+            if isinstance(value, torch.Tensor):
+                got = ("bfloat16", list(value.shape), value.view(torch.int16).numpy().tobytes())
+            else:
+                arr = np.asarray(value)
+                got = (str(arr.dtype), list(arr.shape), arr.tobytes())
+            check((got[0], got[1], hashlib.sha256(got[2]).hexdigest())
+                  == (leaf["dtype"], leaf["shape"], leaf["sha256"]),
+                  f"{name}/{path} differs from leaves.json")
+        read[name] = {"leaves": len(leaves), "read_ms": round(ms, 2)}
+    emit(orbax_leaves={"fixtures": read, "all_equal_to_leaves_json": True})
+
+
+def orbax_serve(tree: np.ndarray, tmp: str) -> dict:
+    """SRPipeline from the Orbax directory g_c64_b1 (one RRDB, full width) in
+    both dtypes, bit for bit against the .npz cut to trunk_0.  Returns the
+    Orbax route's RDB kernel launches by dtype."""
+    cut = os.path.join(tmp, "c64_b1.npz")
+    with np.load(WEIGHTS) as data:
+        np.savez(cut, **{k: data[k] for k in data.files
+                         if not k.startswith("trunk_") or k.startswith("trunk_0/")})
+    launches = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        outs = {}
+        for route, path in (("orbax", ORBAX_G), ("npz_cut", cut)):
+            pipe = SRPipeline(path, num_rrdb=1, bfloat16=dtype == torch.bfloat16, device="cuda")
+            fused_rdb.launches = 0
+            outs[route] = pipe.upscale(tree)
+            outs[route + "_launches"] = fused_rdb.launches
+            del pipe
+        launches[dtype] = outs["orbax_launches"]
+        same = bool(np.array_equal(outs["orbax"], outs["npz_cut"]))
+        emit(orbax_serve={"dtype": DTYPE_NAME[dtype], "weights": os.path.relpath(ORBAX_G, ROOT),
+                          "num_rrdb": 1, "in": list(tree.shape[:2]),
+                          "out": list(outs["orbax"].shape[:2]),
+                          "fused_rdb_launches": outs["orbax_launches"],
+                          "npz_cut_launches": outs["npz_cut_launches"],
+                          "bit_equal_to_npz_cut": same,
+                          "finite": bool(np.isfinite(outs["orbax"]).all())})
+        check(outs["orbax_launches"] == 3 and outs["npz_cut_launches"] == 3,
+              f"orbax serve ({DTYPE_NAME[dtype]}): fused_rdb launched {outs['orbax_launches']} "
+              "times for one RRDB")
+        check(same, f"orbax serve ({DTYPE_NAME[dtype]}) differs from the .npz route")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def orbax_eval_pair(tree: np.ndarray, tmp: str, gpu: str) -> int:
+    """``python -m ...scripts.eval_pair --weights g_c64_b1 --num-rrdb 1`` on
+    the evaluation pairs, its RDB kernel launches through
+    FUSED_RDB_LAUNCH_LOG.  Returns them."""
+    lr_dir, hr_dir = write_eval_pairs(tree, os.path.join(tmp, "pairs"))
+    log = os.path.join(tmp, "eval_pair_launches.jsonl")
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "real_esrgan_tpu_torch.scripts.eval_pair",
+                          "--weights", os.path.relpath(ORBAX_G, ROOT), "--num-rrdb", "1",
+                          "--lr-dir", lr_dir, "--hr-dir", hr_dir], cwd=ROOT,
+                         env=dict(os.environ, FUSED_RDB_LAUNCH_LOG=log), capture_output=True,
+                         text=True, timeout=300)
+    seconds = time.perf_counter() - t0
+    check(run.returncode == 0, f"eval_pair on the Orbax directory exited {run.returncode}: "
+                               f"{run.stderr[-2000:]}")
+    summary = json.loads(run.stdout.strip().splitlines()[-1])
+    launched = sum(json.loads(line)["launches"] for line in open(log))
+    emit(orbax_eval_pair={"card": gpu, "seconds": round(seconds, 3), "summary": summary,
+                          "fused_rdb_launches": launched})
+    check(summary["n"] == len(EVAL_CROPS) and math.isfinite(summary["psnr_mean"]),
+          f"eval_pair summary {summary}")
+    check(launched == 3 * len(EVAL_CROPS),
+          f"eval_pair launched fused_rdb {launched} times for {len(EVAL_CROPS)} images")
+    return launched
+
+
+def _jax_counts(path: str) -> dict:
+    """step, Adam's count and the guard's lr_scale as the JAX trainer saved
+    them, read raw (no conversion)."""
+    raw = read_pytree(path)
+    adam = raw["opt_state"][1][0]
+    return {"step": int(raw["step"]) if raw.get("step") is not None else None,
+            "count": int(adam["count"]), "lr_scale": float(raw["guard"]["lr_scale"]),
+            "rejected_total": int(raw["guard"]["rejected_total"])}
+
+
+def orbax_resume(gpu: str) -> None:
+    """Both trainers resume their narrow JAX states onto the card and take
+    one float32 step: finite losses, no RDB kernel launch in training, and
+    step, count and lr_scale carry on from the JAX values."""
+    from real_esrgan_tpu_torch.configuration import GanTrainConfig, ModelConfig, TrainConfig
+    from real_esrgan_tpu_torch.models.discriminator import UNetDiscriminator
+    from real_esrgan_tpu_torch.models.vgg import VGG19Features
+    from real_esrgan_tpu_torch.train import esrgan, esrnet
+    from real_esrgan_tpu_torch.train_realesrgan import resume_discriminator, resume_generator
+    from real_esrgan_tpu_torch.train_realesrnet import resume_state
+
+    rng = np.random.default_rng(0)
+    lr = torch.from_numpy(rng.random((2, 16, 16, 3), dtype=np.float32)).cuda()
+    hr = torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32)).cuda()
+    torch.manual_seed(0)
+
+    g_path = os.path.join(ORBAX_DATA, "esrnet_c16", "g_epoch_1")
+    jax = _jax_counts(g_path)
+    cfg = TrainConfig(use_bfloat16=False, remat_rrdb=False, grad_clip_norm=0.5)
+    model = esrnet.build_generator(ModelConfig(**ORBAX_NARROW), cfg, "cuda")
+    opt = esrnet.build_optimizer(cfg, ORBAX_STEPS_PER_EPOCH)
+    state, epoch, best = resume_state(esrnet.init_state(model, opt), g_path, "cuda")
+    before = {"step": state.step, "count": int(state.opt_state.count),
+              "lr_scale": float(state.guard.lr_scale)}
+    step = esrnet.make_train_step(model, opt, None, None, None, cfg.ema_decay,
+                                  reject_limit=cfg.grad_reject_limit,
+                                  rollback_after=cfg.rollback_after,
+                                  reject_mult=cfg.grad_reject_mult)
+    fused_rdb.launches = 0
+    state, metrics = step.update(state, lr, hr)
+    after = {"step": state.step, "count": int(state.opt_state.count),
+             "lr_scale": float(state.guard.lr_scale),
+             "rejected_total": int(state.guard.rejected_total)}
+    loss = float(metrics["loss"])
+    emit(orbax_resume={"stage": 1, "card": gpu, "jax": jax, "resumed": before,
+                       "after_one_step": after, "epoch": epoch, "best_niqe": best, "loss": loss,
+                       "device": str(state.params["conv1.weight"].device),
+                       "fused_rdb_launches": fused_rdb.launches})
+    check(math.isfinite(loss), f"stage 1 resumed: loss {loss}")
+    check(str(state.params["conv1.weight"].device).startswith("cuda"), "stage 1 not on the card")
+    check(before == {k: jax[k] for k in before}, f"stage 1 resumed at {before}, JAX {jax}")
+    check(after == {"step": jax["step"] + 1, "count": jax["count"] + 1,
+                    "lr_scale": jax["lr_scale"], "rejected_total": jax["rejected_total"]},
+          f"stage 1 after one step {after}, JAX {jax}")
+    check(fused_rdb.launches == 0, "the stage-1 step launched fused_rdb")
+
+    g_path = os.path.join(ORBAX_DATA, "gan_c16", "g_epoch_1")
+    d_path = os.path.join(ORBAX_DATA, "gan_c16", "d_epoch_1")
+    jax = {"g": _jax_counts(g_path), "d": _jax_counts(d_path)}
+    cfg = GanTrainConfig(use_bfloat16=False, remat_rrdb=False, vgg_nodes=ORBAX_VGG_NODES,
+                         content_weights=(0.1, 1.0))
+    generator = esrnet.build_generator(ModelConfig(**ORBAX_NARROW), cfg, "cuda")
+    discriminator = UNetDiscriminator(channels=ORBAX_D_CHANNELS, dtype=torch.float32,
+                                      device="cuda")
+    vgg = VGG19Features(ORBAX_VGG_NODES, dtype=torch.float32, device="cuda").requires_grad_(False)
+    g_tx, d_tx = esrgan.build_optimizers(cfg, ORBAX_STEPS_PER_EPOCH)
+    state = esrgan.init_gan_state(generator, discriminator, g_tx, d_tx)
+    state, epoch, best = resume_generator(state, g_path)
+    state = resume_discriminator(state, d_path)
+
+    def counts(s):
+        return {"step": s.step, "g_count": int(s.g_opt.count), "d_count": int(s.d_opt.count),
+                "g_lr_scale": float(s.g_guard.lr_scale), "d_lr_scale": float(s.d_guard.lr_scale)}
+
+    before = counts(state)
+    step = esrgan.make_gan_train_step(generator, discriminator, vgg, g_tx, d_tx, None, None,
+                                      degrade_cfg.DegradationConfig(), cfg)
+    fused_rdb.launches = 0
+    state, metrics = step.update(state, lr, hr)
+    after = counts(state)
+    losses = {k: float(metrics[k]) for k in ("g_loss", "d_loss")}
+    emit(orbax_resume={"stage": 2, "card": gpu, "jax": jax, "resumed": before,
+                       "after_one_step": after, "epoch": epoch, "best_niqe": best,
+                       "losses": losses, "device": str(state.d_params["conv1.weight"].device),
+                       "fused_rdb_launches": fused_rdb.launches})
+    check(all(math.isfinite(v) for v in losses.values()), f"stage 2 resumed: losses {losses}")
+    expect = {"step": jax["g"]["step"], "g_count": jax["g"]["count"],
+              "d_count": jax["d"]["count"], "g_lr_scale": jax["g"]["lr_scale"],
+              "d_lr_scale": jax["d"]["lr_scale"]}
+    check(before == expect, f"stage 2 resumed at {before}, JAX {expect}")
+    check(after == {**expect, "step": expect["step"] + 1, "g_count": expect["g_count"] + 1,
+                    "d_count": expect["d_count"] + 1},
+          f"stage 2 after one step {after}, JAX {expect}")
+    check(fused_rdb.launches == 0, "the stage-2 step launched fused_rdb")
+    torch.cuda.empty_cache()
+
+
+def orbax_decode_rate(gpu: str) -> None:
+    """The decoder on every zstd frame of the fixtures (their zarr chunks),
+    repeated until ORBAX_DECODE_SECONDS have passed."""
+    frames = []
+    for name in ORBAX_FIXTURES:
+        store = OcdbtStore(os.path.join(ORBAX_DATA, name))
+        frames += [store.get(k) for k in store.keys() if not k.endswith(".zarray")]
+    compressed = sum(len(f) for f in frames)
+    decoded = passes = 0
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < ORBAX_DECODE_SECONDS:
+        decoded += sum(len(zstd.decompress(f)) for f in frames)
+        passes += 1
+    seconds = time.perf_counter() - t0
+    emit(orbax_decode={"card": gpu, "host_cpus": os.cpu_count(), "frames": len(frames),
+                       "compressed_bytes": compressed, "decoded_bytes": decoded // passes,
+                       "passes": passes, "seconds": seconds,
+                       "decoded_MB_per_s": decoded / seconds / 1e6,
+                       "compressed_MB_per_s": compressed * passes / seconds / 1e6})
+
+
+def drive_orbax(tree: np.ndarray, gpu: str) -> dict:
+    """The Orbax phase (docstring item 16).  Returns the RDB kernel's
+    launches of its serving and evaluation paths by dtype."""
+    t0 = time.perf_counter()
+    orbax_build(gpu)
+    orbax_read_fixtures()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = orbax_serve(tree, tmp)
+        eval_launches = orbax_eval_pair(tree, tmp, gpu)
+    orbax_resume(gpu)
+    orbax_decode_rate(gpu)
+    emit(orbax_seconds=round(time.perf_counter() - t0, 1))
+    return {torch.bfloat16: {"orbax_serve": launches[torch.bfloat16],
+                             "orbax_eval_pair": eval_launches},
+            torch.float32: {"orbax_serve": launches[torch.float32]}}
+
+
 def bound(flops: float, moved: float) -> dict:
     """The least time the card could take: operations over the bf16 peak
     against bytes over the memory rate."""
@@ -2783,6 +3074,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_trunk_activations(state_dict, trunk_inputs.pop(dtype), dtype)
     check_autograd_guard(state_dict)
+    orbax_launches = drive_orbax(tree, gpu)
     tree_sr = read_png(TREE_SR)
     drive_degrade(tree_sr)
     train_launches = drive_train(tree_sr, gpu)
@@ -2802,9 +3094,11 @@ def main() -> int:
 
     trainers = {torch.bfloat16: {"train_validation": train_launches, **gan_launches,
                                  "tiled_devices": ddp_launches[torch.bfloat16],
-                                 **front_end_launches, **research_launches},
+                                 **front_end_launches, **research_launches,
+                                 **orbax_launches[torch.bfloat16]},
                 torch.float32: {"train_validation": 0, "gan_validation": 0, "npz_snapshot": 0,
-                                "tiled_devices": ddp_launches[torch.float32]}}
+                                "tiled_devices": ddp_launches[torch.float32],
+                                **orbax_launches[torch.float32]}}
     emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],
                                              **trainers[d]}
                              for d in launches})

@@ -4,12 +4,11 @@ real_esrgan_tpu/data/native_loader.py, over the same ``native/loader.cpp``.
 The source is compiled with ``g++`` (``native/Makefile``'s flags, against
 the system's libpng and libjpeg) on first use into a shared library under
 ``real_esrgan_tpu_torch/_build/`` (listed in ``.gitignore``), whose name
-carries a hash of the source, the flags and the host.  The build runs under
-an ``fcntl`` lock and writes a temporary file that ``os.replace`` moves into
-place, so processes that start at once build it once and never load half a
-file.  ``available()`` is False, and ``unavailable_reason()`` keeps the
-compiler's message, where the build fails (no ``png.h`` or ``jpeglib.h``,
-no ``g++``); the trainers then take the next loader of their chain.
+carries a hash of the source, the flags and the host; ``utils/native_build.py``
+builds it under an ``fcntl`` lock, so processes that start at once build it
+once and never load half a file.  ``available()`` is False, and
+``unavailable_reason()`` keeps the compiler's message, where the build fails
+(no ``png.h`` or ``jpeglib.h``, no ``g++``); the trainers then take the next loader of their chain.
 
 ``NativeBatchLoader`` decodes n files and crops each in a C++ thread pool
 outside the GIL, with its own decoded-image RAM cache;
@@ -22,10 +21,7 @@ so it is not ``ThreadedLoader``'s crop unless the crop is the whole image.
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import hashlib
 import os
-import platform
 import queue
 import subprocess
 import threading
@@ -33,6 +29,8 @@ from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from real_esrgan_tpu_torch.utils import native_build
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG.parent / "native" / "loader.cpp"
@@ -46,34 +44,13 @@ _lib_lock = threading.Lock()
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    # -march=native: a library built on another host may not run on this one
-    digest.update(" ".join((*CXXFLAGS, *LDLIBS, platform.machine(), platform.node())).encode())
-    return BUILD_DIR / f"native_loader-{digest.hexdigest()[:16]}.so"
+    return native_build.library_path(SOURCE, BUILD_DIR, "native_loader", (*CXXFLAGS, *LDLIBS))
 
 
 def build() -> Path:
     """Compiles ``native/loader.cpp`` unless a current build exists; raises
     with the compiler's output on error."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / "native_loader.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
-        if not lib.exists():  # another process may have built it meanwhile
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            proc = subprocess.run([os.environ.get("CXX", "g++"), *CXXFLAGS, str(SOURCE),
-                                   *LDLIBS, "-o", str(tmp)],
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                                  timeout=300)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                first = next((line for line in proc.stdout.splitlines() if "error" in line),
-                             f"exit code {proc.returncode}")
-                raise RuntimeError(f"g++ failed for {SOURCE.name}: {first.strip()}\n{proc.stdout}")
-            os.replace(tmp, lib)
-    return lib
+    return native_build.build(SOURCE, BUILD_DIR, "native_loader", CXXFLAGS, LDLIBS)
 
 
 def _load() -> Optional[ctypes.CDLL]:

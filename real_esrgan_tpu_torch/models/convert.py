@@ -149,14 +149,21 @@ def convert_discriminator(state_dict: Mapping[str, Any]):
     return params, stats
 
 
-def discriminator_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]):
-    """JAX ``UNetDiscriminator`` params and ``batch_stats`` (numpy) -> (the
-    port's state_dict, its spectral state)."""
+def discriminator_params_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``UNetDiscriminator`` params, or a tree of their shape such as
+    Adam's moments (numpy) -> the port's state_dict."""
     sd = {}
     for name, node in params.items():
         sd[f"{name}.weight"] = _hwio_to_oihw(node["kernel"])
         if "bias" in node:
             sd[f"{name}.bias"] = _tensor(node["bias"])
+    return sd
+
+
+def discriminator_state_from_jax(params: Mapping[str, Any], batch_stats: Mapping[str, Any]):
+    """JAX ``UNetDiscriminator`` params and ``batch_stats`` (numpy) -> (the
+    port's state_dict, its spectral state)."""
+    sd = discriminator_params_from_jax(params)
     stats = {}
     for name, i in _DISC_SN_INDEX.items():
         entry = batch_stats[f"SpectralNorm_{i}"]

@@ -3,8 +3,8 @@ the port of ``scripts/eval_pair.py``.
 
 PSNR against the aligned ground truth tracks convergence; NIQE tracks
 perceptual quality once outputs look natural.  Takes reference ``.pth.tar``
-files and compact ``.npz`` snapshots; an Orbax checkpoint directory raises
-and names the script that converts it.
+files, compact ``.npz`` snapshots and checkpoint directories, the port's or
+the JAX trainers' Orbax ones.
 
     python -m real_esrgan_tpu_torch.scripts.eval_pair --weights assets/inenv10_esrnet_ema.npz \\
         --lr-dir data/Set5/LRbicx4 --hr-dir data/Set5/GTmod12 [--use-params] [--cpu]

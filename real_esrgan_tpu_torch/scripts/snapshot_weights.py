@@ -1,12 +1,12 @@
 """Archive a trained generator as one compact ``.npz`` weight snapshot: the
 port of ``scripts/snapshot_weights.py``.
 
-Reads the port's own checkpoint directories (``g_epoch_N``, ``g_best``,
-``g_last``), reference ``.pth.tar`` files and ``.npz`` snapshots through
+Reads checkpoint directories (``g_epoch_N``, ``g_best``, ``g_last``) of
+the port's trainers and the JAX trainers' Orbax ones, reference ``.pth.tar``
+files and ``.npz`` snapshots through
 ``train/checkpoint.py::load_generator_params``, and writes through
 ``save_params_npz``: ``/``-joined flax paths, f16 unless ``--float32``, the
-format both packages load.  An Orbax checkpoint directory of the JAX trainer
-needs the root script, which reads it through JAX.
+format both packages load.
 
     python -m real_esrgan_tpu_torch.scripts.snapshot_weights \\
         --checkpoint results/<exp>/g_best --output assets/<exp>_ema.npz   # EMA weights
@@ -26,7 +26,7 @@ from real_esrgan_tpu_torch.train.checkpoint import load_generator_params, save_p
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="generator weights -> compact .npz snapshot")
     p.add_argument("--checkpoint", type=str, required=True,
-                   help="the port's checkpoint dir, .pth.tar, or .npz")
+                   help="a checkpoint dir (the port's or an Orbax one), .pth.tar, or .npz")
     p.add_argument("--output", type=str, required=True, help="output .npz path")
     p.add_argument("--use-params", action="store_true",
                    help="snapshot raw params instead of EMA weights")

@@ -17,8 +17,7 @@ held-out sets and their recorded no-model baselines.  Prints a human table
 plus ONE machine-readable JSON verdict line and exits 0 on PASS / 1 on
 FAIL.  Runs on the GPU in bfloat16; ``--cpu`` runs on the CPU in float32.
 Weights: ``.pth.tar``, ``.npz`` or a checkpoint directory of the port's
-trainers (an Orbax directory raises: convert it with
-``scripts/snapshot_weights.py``).
+trainers or the JAX trainers' Orbax one.
 """
 
 from __future__ import annotations

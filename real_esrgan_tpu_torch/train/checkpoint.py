@@ -9,11 +9,17 @@ update ``count`` and the moments ``mu``/``nu``) and ``guard``, as tensors on
 the CPU, plain dicts and numbers, so it loads with ``weights_only=True``.
 Saves are synchronous.
 
-Generator weights load from three formats: compact ``.npz`` snapshots
-(``/``-joined flax paths, f16 stored, loaded as f32), reference
-``.pth.tar`` checkpoints, and the port's checkpoint directories.  Orbax
-checkpoint directories need JAX to read; ``scripts/snapshot_weights.py``
-turns one into an ``.npz`` snapshot.
+``load_checkpoint`` also reads the JAX trainers' Orbax directories
+(``utils/orbax_read.py``, no JAX needed) and returns their payload in the
+port's layout: OIHW state_dicts for the generator, the discriminator and
+Adam's moments, the spectral state as ``batch_stats``, and optax's
+``opt_state`` as ``{"count", "mu", "nu"}``.  So both trainers resume a
+TPU-trained run, and every weights flag takes its directories.  The port
+writes no Orbax.
+
+Generator weights load from compact ``.npz`` snapshots (``/``-joined flax
+paths, f16 stored, loaded as f32), reference ``.pth.tar`` checkpoints, and
+checkpoint directories of either kind.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ import numpy as np
 import torch
 
 from real_esrgan_tpu_torch.models.convert import (
-    convert_generator, state_dict_from_jax_params, strip_prefix,
+    convert_generator, discriminator_params_from_jax, discriminator_state_from_jax,
+    state_dict_from_jax_params, strip_prefix,
 )
+from real_esrgan_tpu_torch.utils.orbax_read import is_orbax_dir, read_pytree
 
 
 def _load_params_npz(path: str) -> Dict[str, Any]:
@@ -217,10 +225,79 @@ def is_checkpoint_dir(path: str) -> bool:
     return os.path.isfile(os.path.join(path, CHECKPOINT_FILE))
 
 
+def _adam_state(opt_state, to_port) -> Dict[str, Any]:
+    """optax's state of ``chain(clip_by_global_norm, chain(scale_by_adam,
+    scale_by_schedule))`` (or the chain without the clip), as Orbax lays it
+    out: ``[None, [{count, mu, nu}, {count}]]`` -> the port's ``{"count",
+    "mu", "nu"}``, the moments through ``to_port``."""
+    adam, counts = [], []
+
+    def walk(node):
+        if isinstance(node, list):
+            for item in node:
+                walk(item)
+        elif isinstance(node, dict):
+            if set(node) == {"count", "mu", "nu"}:
+                adam.append(node)
+            elif set(node) == {"count"}:
+                counts.append(int(node["count"]))
+            else:
+                raise ValueError(f"opt_state holds an optax state with fields {sorted(node)}, "
+                                 "not Adam's or a schedule's")
+        elif node is not None:
+            raise ValueError(f"opt_state holds a {type(node).__name__}")
+
+    walk(opt_state)
+    if len(adam) != 1:
+        raise ValueError(f"opt_state holds {len(adam)} Adam states, expected one")
+    count = int(adam[0]["count"])
+    if any(c != count for c in counts):
+        raise ValueError(f"opt_state: schedule count {counts} differs from Adam's count {count}")
+    return {"count": torch.tensor(count, dtype=torch.int32),
+            "mu": to_port(adam[0]["mu"]), "nu": to_port(adam[0]["nu"])}
+
+
+def load_orbax_checkpoint(path: str) -> Dict[str, Any]:
+    """The JAX trainer's Orbax checkpoint directory ``path`` as the port's
+    payload (see the module's docstring); a ``d_`` checkpoint is told by its
+    ``batch_stats``.  A tree without ``params`` is taken as a bare generator
+    params tree."""
+    tree = read_pytree(path)
+    if "params" not in tree:
+        return {"params": state_dict_from_jax_params(tree)}
+    out: Dict[str, Any] = {}
+    if "batch_stats" in tree:
+        out["params"], out["batch_stats"] = discriminator_state_from_jax(
+            tree["params"], tree["batch_stats"])
+        to_port = discriminator_params_from_jax
+    else:
+        out["params"] = state_dict_from_jax_params(tree["params"])
+        if "ema_params" in tree:
+            ema = tree["ema_params"]
+            out["ema_params"] = None if ema is None else state_dict_from_jax_params(ema)
+        to_port = state_dict_from_jax_params
+    if tree.get("opt_state") is not None:
+        out["opt_state"] = _adam_state(tree["opt_state"], to_port)
+    if tree.get("guard") is not None:
+        out["guard"] = {k: torch.as_tensor(np.asarray(v)) for k, v in tree["guard"].items()}
+    for key, cast in (("step", int), ("epoch", int), ("best_niqe", float)):
+        if tree.get(key) is not None:
+            out[key] = cast(tree[key])
+    return out
+
+
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    """The payload of the checkpoint directory ``path``, on the CPU."""
-    return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
-                      weights_only=True)
+    """The payload of the checkpoint directory ``path``, on the CPU: the
+    port's own, or the JAX trainer's Orbax directory in the port's layout."""
+    if is_checkpoint_dir(path):
+        return torch.load(os.path.join(path, CHECKPOINT_FILE), map_location="cpu",
+                          weights_only=True)
+    if is_orbax_dir(path):
+        return load_orbax_checkpoint(path)
+    raise ValueError(
+        f"{path} is neither a checkpoint directory of the port (no {CHECKPOINT_FILE}) nor an "
+        "Orbax checkpoint directory (no _METADATA, and no _CHECKPOINT_METADATA beside "
+        "manifest.ocdbt)")
 
 
 def copy_checkpoint(src: str, dst: str) -> None:
@@ -242,7 +319,8 @@ def copy_checkpoint(src: str, dst: str) -> None:
 
 def find_latest_checkpoint(samples_dir: str, prefix: str = "g_epoch_") -> str:
     """The newest ``<prefix>N`` checkpoint directory under ``samples_dir``
-    ('' if none): the trainers' ``--resume auto``."""
+    ('' if none), the port's or the JAX trainer's: the trainers' ``--resume
+    auto``, which so continues a TPU run's samples folder."""
     if not os.path.isdir(samples_dir):
         return ""
     best, best_n = "", -1
@@ -274,8 +352,9 @@ def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch
     * a compact ``.npz`` snapshot (``scripts/snapshot_weights.py``),
     * a reference ``.pth.tar``: ``ema_state_dict`` when present and
       preferred, else ``state_dict``, with the ``model.`` prefix stripped, or
-    * a checkpoint directory of the port's trainer: ``ema_params`` when
-      preferred, else ``params``.
+    * a checkpoint directory of the port's trainer or the JAX trainer's
+      Orbax directory: ``ema_params`` when preferred and saved, else
+      ``params``.
 
     A ``.pth.tar`` is unpickled with ``weights_only=True``: tensors, plain
     containers and numbers, and numpy scalars and arrays (the reference
@@ -293,14 +372,10 @@ def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch
             ckpt = ckpt[key]
         return {k: torch.as_tensor(v, dtype=torch.float32)
                 for k, v in strip_prefix(ckpt).items()}
-    if os.path.isdir(path) and is_checkpoint_dir(path):
-        tree = load_checkpoint(path)
-        params = tree["ema_params"] if prefer_ema and tree.get("ema_params") else tree["params"]
-        return {k: v.float() for k, v in params.items()}
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} looks like an Orbax checkpoint directory, which needs JAX to "
-            "read; convert it first with `python scripts/snapshot_weights.py "
-            f"--checkpoint {path} --output weights.npz` and load the .npz")
+        tree = load_checkpoint(path)
+        ema = tree.get("ema_params")
+        params = ema if prefer_ema and ema else tree["params"]
+        return {k: v.float() for k, v in params.items()}
     raise ValueError(f"unrecognized generator weights file: {path} "
-                     "(expected .npz or .pth.tar)")
+                     "(expected .npz, .pth.tar or a checkpoint directory)")

@@ -55,6 +55,16 @@ BATCH = 4
 COMBOS = [(False, False, True), (True, True, False), (True, False, True), (False, True, False)]
 CASES = [(key, *COMBOS[key % 4]) for key in range(8)]
 LR_EQUAL_SHARE, LR_PSNR_DB = 0.99, 50.0
+# LR values of each case that differ from JAX's, as measured (of 12,288 a
+# case).  Key 4's 376 all come from the first JPEG stage: the port run from
+# JAX's output of that stage on gives JAX's LR exactly, and from its input
+# on, 376 values off.  On the same input that stage differs from XLA's in
+# 141,872 of 307,200 values by at most 2.98e-7, the float64 DCT products
+# rounded once (kept so the card and the CPU agree) against XLA's float32
+# sums; through the later stages those last bits move 376 LR values
+# (test_key4_divergence_comes_from_the_first_jpeg_stage).  Keys 5 and 6:
+# one value each.
+LR_DIFFERING_BY_KEY = {0: 0, 1: 0, 2: 0, 3: 0, 4: 376, 5: 1, 6: 1, 7: 0}
 N_DRAWS = 4096
 KCFG, DCFG = jcfg.KernelSynthesisConfig(), jcfg.DegradationConfig()
 TKCFG, TDCFG = tcfg.KernelSynthesisConfig(), tcfg.DegradationConfig()
@@ -181,12 +191,16 @@ def pipeline_results():
 @pytest.mark.parametrize("key,up1,up2,augment", CASES)
 def test_pipeline_on_jax_draws_matches_jax(pipeline_results, key, up1, up2, augment):
     """Each case: the HR crops bit-identical, the LR of JAX's shape and on
-    8-bit levels; its LR agreement is printed (pytest -s)."""
+    8-bit levels, and no more LR values off JAX's than measured
+    (``LR_DIFFERING_BY_KEY``); its LR agreement is printed (pytest -s)."""
     lr, ref_lr, hr, ref_hr = pipeline_results[(key, up1, up2, augment)]
     assert lr.shape == ref_lr.shape and hr.shape == ref_hr.shape
     np.testing.assert_array_equal(hr, ref_hr)
     np.testing.assert_allclose(lr * 255.0, np.round(lr * 255.0), atol=1e-4)
-    print(f"key {key} up1 {up1} up2 {up2} augment {augment}: {compare_lr(lr, ref_lr)}")
+    stats = compare_lr(lr, ref_lr)
+    print(f"key {key} up1 {up1} up2 {up2} augment {augment}: {stats}")
+    differing = int((np.round(lr * 255.0) != np.round(ref_lr * 255.0)).sum())
+    assert differing <= LR_DIFFERING_BY_KEY[key], (differing, stats)
 
 
 def test_pipeline_lr_agrees_with_jax_over_every_case(pipeline_results):
@@ -200,6 +214,94 @@ def test_pipeline_lr_agrees_with_jax_over_every_case(pipeline_results):
     stats = compare_lr(ours, ref)
     print(f"all {len(CASES)} cases: {stats}")
     assert stats["equal_share"] >= LR_EQUAL_SHARE and stats["psnr_db"] >= LR_PSNR_DB, stats
+
+
+# ------------------------------------------------------------------ key 4
+
+@functools.partial(jax.jit, static_argnames=("geo",))
+def _jax_first_order(key, hr_uint8, geo):
+    """The first-order stages of JAX's ``degrade`` for a case with augment
+    on and up1 off (key 4), each output kept: USM, the 21x21 blur, the first
+    resize, the noise and the first JPEG (degradation.py:157-197)."""
+    b = hr_uint8.shape[0]
+    k_orient, k_k1, _, _, k_blur1, k_rs1, k_noise1, k_q1 = jax.random.split(key, 16)[:8]
+    hr = hr_uint8.astype(jnp.float32) / 255.0
+    hr = jax.vmap(jdeg.apply_orientation)(hr, *random_orientation(k_orient, b))
+    k1 = jax.vmap(lambda k: jdeg.random_first_order_kernel(k, KCFG))(jax.random.split(k_k1, b))
+    out = {"usm": jdeg.usm_sharpen(hr, jdeg.gaussian_kernel_1d(DCFG.usm_radius, 0.0),
+                                   DCFG.usm_weight, DCFG.usm_threshold)}
+    blur1_on = jax.random.uniform(k_blur1, (b,)) <= DCFG.first_blur_prob
+    out["blur1"] = jdeg.filter2d(out["usm"], jnp.where(blur1_on[:, None, None], k1,
+                                                       jdeg.identity_kernel(KCFG.pad_to)[None]),
+                                 compute_dtype=jnp.bfloat16)
+    k_s1, k_m1 = jax.random.split(k_rs1)
+    extent1 = jnp.full((b,), 1, jnp.int32) * jnp.floor(
+        geo.hr_size * jdeg._batch_scale(k_s1, False, DCFG.resize_probs1, DCFG.resize_range1)
+    ).astype(jnp.int32)
+    c1 = geo.canvas1_for(False)
+    out["resize1"] = jdeg._batched_resize(out["blur1"], jnp.full((b,), geo.hr_size, jnp.int32),
+                                          extent1, (c1, c1), jax.random.randint(k_m1, (), 0, 3))
+    out["noise1"] = jdeg._mixed_noise(k_noise1, out["resize1"], DCFG.gaussian_noise_prob1,
+                                      DCFG.noise_range1, DCFG.poisson_scale_range1,
+                                      DCFG.gray_noise_prob1, DCFG.poisson_approx)
+    q1 = jax.random.uniform(k_q1, (b,), minval=DCFG.jpeg_range1[0], maxval=DCFG.jpeg_range1[1])
+    out["jpeg1"] = jdeg.diff_jpeg(jnp.clip(out["noise1"], 0.0, 1.0), q1)
+    return out
+
+
+def test_key4_divergence_comes_from_the_first_jpeg_stage():
+    """The worst case, stage by stage: the port from JAX's output of the
+    first JPEG on gives JAX's LR exactly; from that stage's input on, the
+    measured 376 values differ.  That stage alone, on JAX's input, differs
+    from XLA only in last bits (its float64 DCT products, rounded once).
+    The counts of every stage are printed (pytest -s)."""
+    key, up1, up2, augment = CASES[4]
+    assert (up1, up2, augment) == (False, False, True)
+    geo, tgeo = jcfg.PipelineGeometry(**GEO), tcfg.PipelineGeometry(**GEO)
+    hr = smooth_batch(BATCH, GEO["hr_size"], key)
+    jkey = jax.random.PRNGKey(key)
+    ref_lr = np.asarray(_jax_degrade(jkey, hr, geo, KCFG, DCFG, augment=True, up1=False,
+                                     up2=False)[0])
+    jax_out = {k: torch.from_numpy(np.array(v)) for k, v in
+               _jax_first_order(jkey, hr, geo).items()}
+    d = tdeg.draws_from_arrays(jax_draw_arrays(jkey, BATCH, geo, KCFG, DCFG, False, False, True))
+    assert d.order and d.blur2  # resize -> sinc -> JPEG at the end
+
+    h = tdeg.apply_orientation(torch.from_numpy(hr).float() * tdeg.INV_255, *d.orientation)
+    k1, k2, sinc = tdeg.kernels_of((d.kernel1, d.kernel2, d.sinc), TKCFG.pad_to)
+    k1 = torch.where(d.blur1[:, None, None], k1, tdeg.identity_kernel(TKCFG.pad_to))
+    e1, e2 = tdeg._extent(tgeo.hr_size, d.scale1), tdeg._extent(tgeo.lr_size, d.scale2)
+    lr_size = tgeo.lr_size
+
+    def jpeg1(x):
+        return tdeg.diff_jpeg(torch.clamp(x, 0.0, 1.0), d.quality1)
+
+    def after_jpeg1(x):
+        x = tdeg._batched_resize(tdeg._blur(x, k2), e1, e2, tgeo.canvas2_for(False), d.method2)
+        x = tdeg._mixed_noise(x, d.noise2, TDCFG.poisson_approx)
+        x = tdeg._batched_resize(x, e2, lr_size, lr_size, d.method3, final=True)
+        x = tdeg.diff_jpeg(torch.clamp(tdeg._blur(x, sinc), 0.0, 1.0), d.quality2)
+        lr = torch.clamp(torch.round(x * 255.0), 0.0, 255.0) * tdeg.INV_255
+        lr = tdeg.crop_pairs(lr, h, d.crop_top, d.crop_left, tgeo.crop_size, tgeo.scale)[0]
+        return int((np.round(lr.numpy() * 255.0) != np.round(ref_lr * 255.0)).sum())
+
+    alone = {  # each stage of the port on JAX's input of it
+        "usm": tdeg.usm_sharpen(h, tdeg.gaussian_kernel_1d(TDCFG.usm_radius, 0.0),
+                                TDCFG.usm_weight, TDCFG.usm_threshold),
+        "blur1": tdeg._blur(jax_out["usm"], k1),
+        "resize1": tdeg._batched_resize(jax_out["blur1"], tgeo.hr_size, e1,
+                                        tgeo.canvas1_for(False), d.method1),
+        "noise1": tdeg._mixed_noise(jax_out["resize1"], d.noise1, TDCFG.poisson_approx),
+        "jpeg1": jpeg1(jax_out["noise1"])}
+    for name, ours in alone.items():
+        off = ours != jax_out[name]
+        print(f"key 4, {name} alone: {int(off.sum())} of {off.numel()} values differ, "
+              f"max {float((ours - jax_out[name]).abs().max()):.3g}")
+    from_input, from_output = after_jpeg1(jpeg1(jax_out["noise1"])), after_jpeg1(jax_out["jpeg1"])
+    print(f"key 4 LR values off JAX's: from the first JPEG's input on {from_input}, "
+          f"from its output on {from_output}, of {ref_lr.size}")
+    assert float((alone["jpeg1"] - jax_out["jpeg1"]).abs().max()) < 1e-6
+    assert from_output == 0 and 0 < from_input <= LR_DIFFERING_BY_KEY[4]
 
 
 # ------------------------------------------------------------------ golden

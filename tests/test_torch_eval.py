@@ -245,8 +245,20 @@ def test_cli_defaults_and_refusals(tmp_path):
     dirs = ["--lr-dir", str(empty), "--hr-dir", str(empty), "--cpu"]
     with pytest.raises(SystemExit):
         port_eval_pair.main(dirs)  # no --weights and no --bicubic
-    with pytest.raises(ValueError, match="Orbax"):
+    # an empty directory is no checkpoint of either kind; the JAX trainer's
+    # Orbax directory loads (no pairs here, so nothing is scored)
+    with pytest.raises(ValueError, match="nor an Orbax checkpoint directory"):
         port_eval_pair.main(["--weights", str(empty), *dirs])
+    orbax = os.path.join(ROOT, "tests", "data", "jax_orbax", "g_c64_b1")
+    lr_one, hr_one = tmp_path / "lr_one", tmp_path / "hr_one"
+    for d in (lr_one, hr_one):
+        d.mkdir()
+    crop = read_png(TREE_SR)[:32, :32]
+    write_png(str(hr_one / "a.png"), crop)
+    write_png(str(lr_one / "a.png"), crop[::4, ::4])
+    one = ["--lr-dir", str(lr_one), "--hr-dir", str(hr_one), "--cpu", "--num-rrdb", "1"]
+    summary = port_eval_pair.main(["--weights", orbax, *one])
+    assert summary["n"] == 1 and summary["which"] == "ema" and np.isfinite(summary["psnr_mean"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             port_eval_pair.main(["--bicubic", "--lr-dir", str(empty), "--hr-dir", str(empty)])

@@ -1,4 +1,6 @@
-"""The port imports neither JAX nor the JAX package.
+"""The port imports neither JAX nor the JAX package, nor the libraries that
+read Orbax checkpoints (Orbax, TensorStore, ``zstandard``): it reads them
+with its own decoder.
 
 A fresh interpreter imports every module of ``real_esrgan_tpu_torch`` and
 ``chip_smoke`` (and so everything they import), then lists the forbidden
@@ -21,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(real_esrgan_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-forbidden = ("jax", "jaxlib", "flax", "optax", "orbax", "real_esrgan_tpu", "cv2")
+forbidden = ("jax", "jaxlib", "flax", "optax", "orbax", "real_esrgan_tpu", "cv2",
+             "tensorstore", "zstandard")
 held = sorted(m for m in sys.modules
               if any(m == f or m.startswith(f + ".") for f in forbidden))
 print(json.dumps({"imported": names, "forbidden": held}))
@@ -49,5 +52,7 @@ def test_port_and_chip_smoke_import_no_jax():
                    "scripts.serve_http", "graft_entry", "scripts.validate_parity",
                    "scripts.make_lr", "tools.tile_sweep", "scripts.snapshot_weights",
                    "tools.make_inenv_dataset", "tools.perf_lab", "tools.tail_exp",
-                   "tools.nan_probe", "tools.explode_analysis", "tools.grad_probe"):
+                   "tools.nan_probe", "tools.explode_analysis", "tools.grad_probe",
+                   "utils.zstd", "utils.ocdbt", "utils.orbax_read", "utils.native_build",
+                   "scripts.export_torch"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]

@@ -153,6 +153,16 @@ def test_load_generator_params_reads_a_checkpoint_directory(tmp_path):
         assert torch.equal(ema[k], state.ema_params[k]) and torch.equal(raw[k], state.params[k])
     model = esrnet.build_generator(MODEL, CFG, training=False)
     model.load_state_dict(ema)
-    (tmp_path / "orbax").mkdir()
-    with pytest.raises(ValueError, match="snapshot_weights.py"):
+    (tmp_path / "orbax").mkdir()  # empty: neither kind of checkpoint directory
+    with pytest.raises(ValueError, match="nor an Orbax checkpoint directory"):
         ckpt_lib.load_generator_params(str(tmp_path / "orbax"))
+    # the JAX trainer's Orbax g_epoch_1: EMA and params as saved, both OIHW
+    jax_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "jax_orbax",
+                           "esrnet_c16", "g_epoch_1")
+    tree = ckpt_lib.load_checkpoint(jax_dir)
+    ema = ckpt_lib.load_generator_params(jax_dir)
+    raw = ckpt_lib.load_generator_params(jax_dir, prefer_ema=False)
+    assert ema.keys() == raw.keys() == tree["params"].keys()
+    for k in ema:
+        assert torch.equal(ema[k], tree["ema_params"][k]) and torch.equal(raw[k], tree["params"][k])
+    assert ema["conv1.weight"].shape == (16, 3, 3, 3)

@@ -101,8 +101,17 @@ def test_converters_match_jax():
 
 
 def test_orbax_directory_raises_with_the_conversion_route(tmp_path):
-    with pytest.raises(ValueError, match="snapshot_weights.py"):
+    """An empty directory is a checkpoint of neither kind and raises naming
+    both; the JAX trainer's Orbax directory (no EMA saved) loads its params,
+    the committed snapshot's head, trunk_0 and tail."""
+    with pytest.raises(ValueError, match="neither a checkpoint directory of the port .* nor an "
+                                         "Orbax checkpoint directory"):
         load_generator_params(str(tmp_path))
+    orbax = load_generator_params(os.path.join(ROOT, "tests", "data", "jax_orbax", "g_c64_b1"))
+    npz = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    assert len(orbax) == 42
+    for k, v in orbax.items():
+        assert torch.equal(v, npz[k]), k
     with pytest.raises(ValueError, match="unrecognized"):
         load_generator_params(str(tmp_path / "weights.bin"))
 

@@ -31,6 +31,8 @@ from typing import Callable, List, Mapping, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from real_esrgan_tpu_torch.utils.profiling import add, span
+
 ApplyFn = Callable[[torch.Tensor], torch.Tensor]
 
 
@@ -81,7 +83,12 @@ def tiled_canvas(apply_fn: Union[ApplyFn, Sequence[ApplyFn]],
     of ``devices`` to its copy there.  ``apply_fn`` and ``devices`` are as in
     ``tiled_upscale``; ``tile_batch`` is rounded to a multiple of the device
     count.  The tiles run in ``ceil(ny * nx / tile_batch)`` batches, the last
-    one holding only the tiles that are left."""
+    one holding only the tiles that are left.
+
+    Spans (``utils/profiling.py``): ``tiling.canvas`` around one
+    ``tiling.batch`` a tile batch (the tiles' stack and the forward's
+    enqueue) and ``tiling.stitch``, a root where no request is open; counter
+    ``tiles``."""
     if devices is None:
         devices = [padded.device] if isinstance(padded, torch.Tensor) else list(padded)
     devices = [torch.device(d) for d in devices]
@@ -94,22 +101,27 @@ def tiled_canvas(apply_fn: Union[ApplyFn, Sequence[ApplyFn]],
     core = tile - 2 * overlap
     c_s, o_s = core * scale, overlap * scale
     cores = []
-    for start in range(0, n_tiles, tile_batch):
-        batch = torch.arange(start, min(start + tile_batch, n_tiles))
-        for d, fn, flat in zip(devices, fns, torch.tensor_split(batch, n_dev)):
-            if len(flat) == 0:
-                continue
-            src = padded[d]
-            tiles = torch.stack([src[(i // nx) * core:(i // nx) * core + tile,
-                                     (i % nx) * core:(i % nx) * core + tile]
-                                 for i in flat.tolist()])
-            sr = fn(tiles)
-            cores.append(sr[:, o_s:o_s + c_s, o_s:o_s + c_s, :])
-    first = devices[0]
-    out = torch.cat([piece.to(first) for piece in cores]) if n_dev > 1 else torch.cat(cores)
-    channels = out.shape[-1]
-    out = out.reshape(ny, nx, c_s, c_s, channels)
-    return out.permute(0, 2, 1, 3, 4).reshape(ny * c_s, nx * c_s, channels)
+    with span("tiling.canvas"):
+        add(tiles=n_tiles)
+        for start in range(0, n_tiles, tile_batch):
+            with span("tiling.batch"):
+                batch = torch.arange(start, min(start + tile_batch, n_tiles))
+                for d, fn, flat in zip(devices, fns, torch.tensor_split(batch, n_dev)):
+                    if len(flat) == 0:
+                        continue
+                    src = padded[d]
+                    tiles = torch.stack([src[(i // nx) * core:(i // nx) * core + tile,
+                                             (i % nx) * core:(i % nx) * core + tile]
+                                         for i in flat.tolist()])
+                    sr = fn(tiles)
+                    cores.append(sr[:, o_s:o_s + c_s, o_s:o_s + c_s, :])
+        with span("tiling.stitch"):
+            first = devices[0]
+            out = (torch.cat([piece.to(first) for piece in cores]) if n_dev > 1
+                   else torch.cat(cores))
+            channels = out.shape[-1]
+            out = out.reshape(ny, nx, c_s, c_s, channels)
+            return out.permute(0, 2, 1, 3, 4).reshape(ny * c_s, nx * c_s, channels)
 
 
 def tiled_upscale(apply_fn: Union[ApplyFn, Sequence[ApplyFn]], image: np.ndarray,
@@ -135,13 +147,26 @@ def tiled_upscale(apply_fn: Union[ApplyFn, Sequence[ApplyFn]], image: np.ndarray
     divides 2K inputs; an overlap of 8 input pixels covers the generator's
     receptive field well enough that interior seams sit at the bf16 noise
     floor (``chip_smoke.py`` measures the seam error on the card).
+
+    Spans (``utils/profiling.py``): ``tiling.upscale`` around
+    ``tiling.prepare`` (the pad and the copies in), ``tiled_canvas``'s,
+    ``tiling.wait`` (the copy out, which waits for the device) and
+    ``tiling.finish``, a root where no request is open; counter
+    ``px_useful`` (h * w).
     """
     devices = [torch.device(d) for d in devices] if devices is not None else [
         torch.device(device if device is not None else "cpu")]
     h, w, _ = image.shape
     ny, nx, _ = tile_grid(h, w, tile, overlap)
-    host = torch.from_numpy(np.ascontiguousarray(pad_for_tiles(image, tile, overlap),
-                                                 np.float32))
-    on_device = {d: host.to(d) for d in dict.fromkeys(devices)}
-    out = tiled_canvas(apply_fn, on_device, ny, nx, tile, overlap, tile_batch, scale, devices)
-    return out[:h * scale, :w * scale].cpu().numpy()
+    with span("tiling.upscale"):
+        add(px_useful=h * w)
+        with span("tiling.prepare"):
+            host = torch.from_numpy(np.ascontiguousarray(pad_for_tiles(image, tile, overlap),
+                                                         np.float32))
+            on_device = {d: host.to(d) for d in dict.fromkeys(devices)}
+        out = tiled_canvas(apply_fn, on_device, ny, nx, tile, overlap, tile_batch, scale,
+                           devices)
+        with span("tiling.wait"):
+            out = out[:h * scale, :w * scale].cpu()
+        with span("tiling.finish"):
+            return out.numpy()

@@ -11,14 +11,21 @@ shapes for small inputs, overlap tiles over every local GPU for large ones).
 Endpoints:
   POST /upscale   image bytes (png/jpeg) in, ``x4`` PNG out
   GET  /healthz   JSON liveness + device type + served-request counter
-  GET  /stats     JSON latency stats (count/mean/p50/p95, seconds)
+  GET  /stats     JSON latency stats (count/mean/p50/p95, seconds) and each
+                  stage's p50/p95 (``stages``)
 
 Inference is serialised behind a lock (one forward at a time keeps device
 memory bounded); decoding and encoding run in the handler threads.  The
 forward runs under ``torch.no_grad`` in the handler's thread (grad mode is
-a thread's own), so the RDB kernel, which has no backward, serves it.  The
-latency is taken around ``SRPipeline.upscale``, which ends in a copy to the
-host and so waits for the device.  ``--warmup-size`` runs one forward at
+a thread's own), so the RDB kernel, which has no backward, serves it.
+
+Each request is a root span ``http.request`` (``utils/profiling.py``) with
+the children ``http.decode``, ``http.lock_wait`` (the queue behind the
+lock), ``SRPipeline.upscale``'s spans and ``http.encode``, its record
+owned by the app.  ``/stats`` reads the app's own records among those that
+the process's ring of requests holds (the last 4,096): the latency is
+``http.lock_wait`` plus ``serve.upscale``, which ends in a copy to the host
+and so waits for the device.  ``--warmup-size`` runs one forward at
 start-up, so the kernels are built before the first request arrives.  PNG
 bodies are decoded and encoded by ``utils/imgio.py`` (zlib and numpy); other
 formats need PIL.
@@ -32,14 +39,13 @@ import json
 import math
 import statistics
 import threading
-import time
-from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
 from real_esrgan_tpu_torch.serve import SRPipeline
+from real_esrgan_tpu_torch.utils import profiling
 from real_esrgan_tpu_torch.utils.imgio import decode_png, encode_png
 
 
@@ -50,8 +56,8 @@ def build_app(weights: str = "", upscale_factor: int = 4, num_rrdb: int = 23,
     pipeline = SRPipeline(weights_path=weights, upscale_factor=upscale_factor,
                           num_rrdb=num_rrdb, bfloat16=bfloat16, device=device)
     lock = threading.Lock()
-    latencies: deque = deque(maxlen=1024)  # stats window; bounds memory
     served = [0]
+    app = object()  # owns this app's records in the process's ring of requests
 
     if warmup_size:
         with torch.no_grad():
@@ -76,9 +82,7 @@ def build_app(weights: str = "", upscale_factor: int = 4, num_rrdb: int = 23,
                 self._json(200, {"status": "ok", "device": pipeline.device.type,
                                  "served": served[0]})
             elif self.path == "/stats":
-                with lock:
-                    lat = list(latencies)
-                self._json(200, latency_stats(lat))
+                self._json(200, request_stats(profiling.requests(), app))
             else:
                 self._json(404, {"error": "unknown path"})
 
@@ -86,33 +90,67 @@ def build_app(weights: str = "", upscale_factor: int = 4, num_rrdb: int = 23,
             if self.path != "/upscale":
                 self._json(404, {"error": "unknown path"})
                 return
+            with profiling.span("http.request") as root:
+                root.record.owner = app
+                self._upscale(root.record)
+
+        def _upscale(self, record: profiling.Record) -> None:
             try:
-                size = int(self.headers.get("Content-Length", 0))
-                lr = decode_image(self.rfile.read(size)).astype(np.float32) / 255.0
+                with profiling.span("http.decode"):
+                    size = int(self.headers.get("Content-Length", 0))
+                    lr = decode_image(self.rfile.read(size)).astype(np.float32) / 255.0
             except Exception as exc:
                 self._json(400, {"error": f"bad image: {exc}"})
                 return
-            t0 = time.perf_counter()
             try:
-                with lock, torch.no_grad():
-                    sr = pipeline.upscale(lr)
-                    dt = time.perf_counter() - t0
-                    latencies.append(dt)
+                with profiling.span("http.lock_wait"):
+                    lock.acquire()
+                try:
+                    with torch.no_grad():
+                        sr = pipeline.upscale(lr)
                     served[0] += 1
+                finally:
+                    lock.release()
             except Exception as exc:
                 # an HTTP 500 beats a dropped connection (a degenerate-but-
                 # decodable input, or device OOM on a huge upload, lands here)
+                record.failed = True
                 self._json(500, {"error": f"upscale failed: {exc}"})
                 return
-            body = encode_png(quantize(sr))
+            with profiling.span("http.encode"):
+                body = encode_png(quantize(sr))
             self.send_response(200)
             self.send_header("Content-Type", "image/png")
             self.send_header("Content-Length", str(len(body)))
-            self.send_header("X-Latency-Seconds", f"{dt:.4f}")
+            self.send_header("X-Latency-Seconds", f"{latency_s(record):.4f}")
             self.end_headers()
             self.wfile.write(body)
 
     return Handler
+
+
+def latency_s(record: profiling.Record) -> float:
+    """A request's latency: the wait for the lock and ``SRPipeline.upscale``."""
+    return (record.stages.get("http.lock_wait", 0) + record.stages.get("serve.upscale", 0)) / 1e9
+
+
+def request_stats(records, owner) -> dict:
+    """``/stats`` over the requests among ``records`` that the app ``owner``
+    upscaled: ``latency_stats`` of their latencies, and ``stages``, the
+    nearest-rank p50 and p95 seconds of each span name (the root
+    ``http.request`` and its children)."""
+    served = [r for r in records if r.owner is owner and r.name == "http.request"
+              and not r.failed and "serve.upscale" in r.stages]
+    stats = latency_stats([latency_s(r) for r in served])
+    by_name: dict = {}
+    for r in served:
+        by_name.setdefault(r.name, []).append(r.duration_ns / 1e9)
+        for name, ns in r.stages.items():
+            by_name.setdefault(name, []).append(ns / 1e9)
+    stats["stages"] = {name: {k: v for k, v in latency_stats(times).items()
+                              if k in ("p50_s", "p95_s")}
+                       for name, times in sorted(by_name.items())}
+    return stats
 
 
 def latency_stats(latencies) -> dict:

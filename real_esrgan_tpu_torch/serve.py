@@ -22,12 +22,22 @@ from real_esrgan_tpu_torch.models import Generator
 from real_esrgan_tpu_torch.parallel.mesh import local_devices
 from real_esrgan_tpu_torch.parallel.tiling import tiled_upscale
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
+from real_esrgan_tpu_torch.utils.profiling import add, span
+
+
+def count_pixels(batch: torch.Tensor) -> None:
+    """Adds the input pixels of an NHWC ``batch`` that the generator is
+    about to run to the open request's ``px_run`` (``utils/profiling.py``)."""
+    n, h, w, _ = batch.shape
+    add(px_run=n * h * w)
 
 
 def no_grad_forward(model: torch.nn.Module):
-    """``model``'s forward under ``torch.no_grad``."""
+    """``model``'s forward under ``torch.no_grad``, its input pixels counted
+    (``count_pixels``)."""
     @torch.no_grad()
     def forward(batch: torch.Tensor) -> torch.Tensor:
+        count_pixels(batch)
         return model(batch)
     return forward
 
@@ -80,23 +90,40 @@ class SRPipeline:
     @torch.no_grad()
     def apply(self, batch: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) NHWC on the pipeline's first device -> (B, sH, sW, 3)."""
+        count_pixels(batch)
         return self.model(batch)
 
     def upscale(self, image: np.ndarray) -> np.ndarray:
-        """x``scale`` one (H, W, 3) float RGB image in [0, 1]."""
-        h, w, _ = image.shape
-        if max(h, w) > self.tile_threshold:
-            return tiled_upscale([no_grad_forward(m) for m in self.models], image,
-                                 scale=self.scale, tile=self.tile, overlap=self.tile_overlap,
-                                 tile_batch=self.tile_batch, devices=self.devices)
+        """x``scale`` one (H, W, 3) float RGB image in [0, 1].
 
-        hb = math.ceil(h / self.bucket) * self.bucket
-        wb = math.ceil(w / self.bucket) * self.bucket
-        padded = np.pad(image, ((0, hb - h), (0, wb - w), (0, 0)),
-                        mode="reflect" if min(h, w) > 1 else "edge")
-        batch = torch.from_numpy(np.ascontiguousarray(padded[None], np.float32))
-        sr = self.apply(batch.to(self.device))
-        return sr[0, :h * self.scale, :w * self.scale].cpu().numpy()
+        One request's spans (``utils/profiling.py``): the root
+        ``serve.upscale``; ``serve.prepare`` (bucket pad, float32, copy to
+        the device), ``serve.launch`` (the forward's enqueue), ``serve.wait``
+        (the copy out, which waits for the device) and ``serve.finish``, or
+        tiling's spans; counters ``px_useful`` (h * w) and, at the
+        generator's call, ``px_run``."""
+        with span("serve.upscale"):
+            h, w, _ = image.shape
+            if max(h, w) > self.tile_threshold:
+                return tiled_upscale([no_grad_forward(m) for m in self.models], image,
+                                     scale=self.scale, tile=self.tile,
+                                     overlap=self.tile_overlap, tile_batch=self.tile_batch,
+                                     devices=self.devices)
+
+            with span("serve.prepare"):
+                hb = math.ceil(h / self.bucket) * self.bucket
+                wb = math.ceil(w / self.bucket) * self.bucket
+                padded = np.pad(image, ((0, hb - h), (0, wb - w), (0, 0)),
+                                mode="reflect" if min(h, w) > 1 else "edge")
+                batch = torch.from_numpy(np.ascontiguousarray(padded[None], np.float32))
+                batch = batch.to(self.device)
+            add(px_useful=h * w)
+            with span("serve.launch"):
+                sr = self.apply(batch)
+            with span("serve.wait"):
+                sr = sr[0, :h * self.scale, :w * self.scale].cpu()
+            with span("serve.finish"):
+                return sr.numpy()
 
     def upscale_batch(self, images) -> list:
         return [self.upscale(img) for img in images]

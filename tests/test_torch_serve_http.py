@@ -4,7 +4,8 @@ CPU.  The port's PNG is its own SRPipeline's output quantised the same way,
 bit for bit, and within 1 level of 8 bits of the JAX server's PNG (at least
 99.9% of values equal): the two frameworks sum in other orders, so a value
 near a quantisation step may land on the other side.  Then the health and
-stats endpoints and the 400, 404 and 500 answers."""
+stats endpoints (the stats read from the request spans) and the 400, 404
+and 500 answers."""
 
 import io
 import json
@@ -24,6 +25,7 @@ from PIL import Image
 from real_esrgan_tpu_torch.models import Generator
 from real_esrgan_tpu_torch.scripts import serve_http
 from real_esrgan_tpu_torch.train.checkpoint import save_params_npz
+from real_esrgan_tpu_torch.utils import profiling
 from real_esrgan_tpu_torch.utils.imgio import decode_png, encode_png
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -108,6 +110,51 @@ def test_health_and_stats(servers):
     assert stats["count"] == health["served"] >= 1
     assert 0 < stats["p50_s"] <= stats["p95_s"]
     assert stats["mean_s"] > 0
+
+
+def test_stats_give_each_stage_of_the_front_ends_requests(servers):
+    _post(servers["port"], encode_png(_image((12, 10), 5)))
+    stages = _get(servers["port"], "/stats")["stages"]
+    assert {"http.request", "http.decode", "http.lock_wait", "serve.upscale", "serve.prepare",
+            "serve.launch", "serve.wait", "serve.finish", "http.encode"} <= set(stages)
+    assert all(0 <= s["p50_s"] <= s["p95_s"] for s in stages.values())
+    assert stages["serve.upscale"]["p95_s"] <= stages["http.request"]["p95_s"]
+
+
+APP = object()
+
+
+def _record(name, upscale_ns, lock_ns=0, failed=False, owner=APP):
+    stages = {"http.lock_wait": lock_ns, "http.decode": 5}
+    if upscale_ns is not None:
+        stages["serve.upscale"] = upscale_ns
+    return profiling.Record(0, name, False, 0, 10 ** 10, failed, stages, owner=owner)
+
+
+def test_stats_count_only_requests_the_front_end_upscaled():
+    records = [_record("http.request", 3 * 10 ** 8, 10 ** 8),
+               _record("http.request", 2 * 10 ** 8),
+               _record("http.request", 10 ** 9, failed=True),   # a 500
+               _record("http.request", None),                   # a 400
+               _record("http.request", 10 ** 9, owner=object()),  # another app's
+               _record("serve.upscale", 10 ** 9, owner=None)]   # outside the front end
+    stats = serve_http.request_stats(records, APP)
+    assert (stats["count"], stats["p50_s"], stats["p95_s"], stats["mean_s"]) == (2, 0.2, 0.4, 0.3)
+    assert stats["stages"]["serve.upscale"] == {"p50_s": 0.2, "p95_s": 0.3}
+    assert stats["stages"]["http.request"] == {"p50_s": 10.0, "p95_s": 10.0}
+    assert serve_http.request_stats([], APP) == {"count": 0, "stages": {}}
+
+
+def test_stats_leave_out_requests_of_the_rest_of_the_process(servers):
+    """Records that another front end in the process, or a bare pipeline,
+    left in the shared ring do not count in this app's ``/stats``."""
+    _post(servers["port"], encode_png(_image((8, 8), 2)))
+    with profiling.span("http.request"):  # another app's request, in this process
+        with profiling.span("serve.upscale"):
+            pass
+    servers["handler"].pipeline_ref.upscale(np.zeros((8, 8, 3), np.float32))
+    stats = _get(servers["port"], "/stats")
+    assert stats["count"] == _get(servers["port"], "/healthz")["served"] >= 1
 
 
 @pytest.mark.parametrize("latencies,p50,p95", [([0.3, 0.1], 0.1, 0.3), ([0.2], 0.2, 0.2),

@@ -22,8 +22,9 @@
    float32 (the whole test image, a bucketed crop, a tiled wide image, and
    the ragged crop the committed JAX golden output covers), with every
    kernel's launch count set to 0 just before and read just after, and the
-   shape of every input the RDB kernel gets recorded; one more forward of
-   the test image in each dtype keeps the inputs of all 69 RDBs;
+   shape of every input the RDB kernel and the tail kernel get recorded; one
+   more forward of the test image in each dtype keeps the inputs of all 69
+   RDBs;
 4. checks the outputs: finite, in [0, 1], the f32 crop within 1e-4 of the
    JAX golden output, the bf16 crop's PSNR against it, and the tiled image's
    interior seam error against a whole-image forward; profiles one warm
@@ -47,7 +48,10 @@
    than a tile and a batch of three ragged images, and in each dtype on the
    real inputs of all 69 RDBs kept in step 3 (|x| up to about 59, where the
    f32 kernel's three bf16 products have the least room), and checks that
-   it raises under autograd (it has no backward);
+   it raises under autograd (it has no backward); holds the tail kernel
+   (``ops/tail_epilogue.py::bias_lrelu``) against ``bias_lrelu_plain`` with
+   ``torch.equal`` at every shape the serving path gave it in each dtype,
+   and checks that it too raises under autograd;
 8. drives the second-order degradation (``ops/degradation.py``, stock
    PyTorch ops, no kernel of its own) under PyTorch's default TF32 flags:
    at the CLI's geometry (hr 400 -> crop 256, batch 8) one CPU draw for
@@ -135,7 +139,8 @@
 14. times each kernel against its plain version, its bound and, where one
    PyTorch call computes the same function, that call (K1 and its plain
    version, K2 and cuDNN, K3, K4 and cuBLAS also inside a CUDA graph,
-   without the host's gaps), and prints
+   without the host's gaps; the tail kernel and its plain version at the
+   bf16 batch cell's upconv2 shape and the f32 tree image's), and prints
    one JSON line ``{"kernels": [...]}``; the last line is
    ``{"ok": true, "device": {...}}``;
 15. before step 14's ``kernels`` line, drives the research tools in a
@@ -175,6 +180,12 @@
    every zstd frame of the fixtures for at least a second (MB/s on this
    host).
 
+On every in-process path that runs the generator, the tail kernel's
+launches are counted beside the RDB kernel's: TAIL_PER_FORWARD a forward
+under no_grad, none in a training step (``bias_lrelu_launches``; the
+subprocesses of the bench, the program's CLIs and the Orbax ``eval_pair``
+are not counted).
+
 Every check raises on failure, so the script exits non-zero and prints no
 result; without CUDA it exits non-zero at once.  f32 phases run with TF32
 off, the degradation with PyTorch's defaults.  Needs one GPU and no network.
@@ -203,6 +214,7 @@ import torch
 from real_esrgan_tpu_torch import configuration as degrade_cfg
 from real_esrgan_tpu_torch import test as test_cli
 from real_esrgan_tpu_torch.metrics.niqe import NIQE, niqe_features
+from real_esrgan_tpu_torch.models import rrdbnet
 from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops import _build
 from real_esrgan_tpu_torch.ops.degradation import (
@@ -220,6 +232,7 @@ from real_esrgan_tpu_torch.ops.mm_probe import (
     mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain, mm_resident_plan,
 )
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
+from real_esrgan_tpu_torch.ops.tail_epilogue import bias_lrelu, bias_lrelu_plain
 from real_esrgan_tpu_torch.parallel import mesh
 from real_esrgan_tpu_torch.scripts import eval_pair, make_degraded_eval
 from real_esrgan_tpu_torch.serve import SRPipeline
@@ -240,6 +253,9 @@ DEGRADE_GOLDEN = os.path.join(ROOT, "tests", "data", "jax_degrade_b2_hr128.npz")
 CROP = (slice(64, 131), slice(128, 221))  # the golden file's input crop
 
 RDBS_PER_FORWARD = 69  # 23 RRDBs x 3 RDBs
+TAIL_PER_FORWARD = 3  # the tail kernel after upsampling1, upsampling2 and conv3
+# the tail kernel's launches by dtype name and path, as count_tail read them
+TAIL_LAUNCHES = {"bf16": {}, "f32": {}}
 # 2 * 9 * (64*32 + 96*32 + 128*32 + 160*32 + 192*64) FLOP per pixel
 RDB_FLOP_PER_PIXEL = 479_232
 RDB_WEIGHTS = RDB_FLOP_PER_PIXEL // 2
@@ -456,6 +472,32 @@ def record_rdb_shapes(shapes: dict):
     return torch.nn.modules.module.register_module_forward_pre_hook(hook)
 
 
+@contextlib.contextmanager
+def record_tail_shapes(shapes: dict):
+    """While open, adds (shape, shuffle) of every input the generator hands
+    the tail kernel to ``shapes[dtype]``."""
+    def recorded(y, bias, shuffle):
+        shapes[y.dtype].add((tuple(y.shape), shuffle))
+        return bias_lrelu(y, bias, shuffle)
+    rrdbnet.bias_lrelu = recorded
+    try:
+        yield
+    finally:
+        rrdbnet.bias_lrelu = bias_lrelu
+
+
+def count_tail(path: str, dtype: torch.dtype, launched: int, rdb_launched: int,
+               rdbs_per_forward: int = RDBS_PER_FORWARD) -> None:
+    """The tail kernel launched TAIL_PER_FORWARD times beside each forward's
+    ``rdbs_per_forward`` RDB launches on ``path``, so none in a training
+    step; adds its launches to TAIL_LAUNCHES."""
+    counts = TAIL_LAUNCHES[DTYPE_NAME[dtype]]
+    counts[path] = counts.get(path, 0) + launched
+    check(launched * rdbs_per_forward == TAIL_PER_FORWARD * rdb_launched,
+          f"{path}: the tail kernel launched {launched} times beside {rdb_launched} RDB "
+          f"launches, not {TAIL_PER_FORWARD} a forward of {rdbs_per_forward}")
+
+
 def rdb_weights(packed) -> dict:
     """The weights the dtype's kernel reads, made once a pack as the model
     makes them: the f32 split or the bf16 boxes, as fused_rdb's keyword."""
@@ -524,6 +566,36 @@ def check_kernels(state_dict, main_shapes: dict) -> None:
                 check(ok, f"fused_rdb {DTYPE_NAME[dtype]} {name} {shape} disagrees with rdb_plain")
 
 
+def tail_inputs(shape, shuffle: bool, dtype: torch.dtype, gen: torch.Generator):
+    """y (N, G C, H, W) in channels_last from N(0, 2^2) and a float32 bias of C
+    from N(0, 0.1^2), for the tail kernel."""
+    n, gc, h, w = shape
+    y = (torch.randn((n, h, w, gc), generator=gen, device="cuda") * 2.0).to(dtype)
+    bias = torch.randn(gc // (4 if shuffle else 1), generator=gen, device="cuda") * 0.1
+    return y.permute(0, 3, 1, 2), bias
+
+
+def check_tail_kernel(shapes: dict) -> None:
+    """The tail kernel against bias_lrelu_plain on the card, ``torch.equal``,
+    at every (shape, shuffle) the serving path gave it in each dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for dtype in (torch.bfloat16, torch.float32):
+        check(any(shuffle for _, shuffle in shapes[dtype])
+              and not all(shuffle for _, shuffle in shapes[dtype]),
+              f"the serving path gave the tail kernel {shapes[dtype]} in {DTYPE_NAME[dtype]}")
+        for shape, shuffle in sorted(shapes[dtype]):
+            y, bias = tail_inputs(shape, shuffle, dtype, gen)
+            ref = bias_lrelu_plain(y, bias, shuffle)
+            out = bias_lrelu(y.clone(memory_format=torch.channels_last), bias, shuffle)
+            same = bool(torch.equal(out, ref)) and out.stride() == ref.stride()
+            emit(tail_check={"dtype": DTYPE_NAME[dtype], "shape": list(shape),
+                             "shuffle": shuffle, "equal": same})
+            check(same, f"the tail kernel {DTYPE_NAME[dtype]} {shape} shuffle={shuffle} "
+                        "differs from bias_lrelu_plain")
+            del y, ref, out
+            torch.cuda.empty_cache()
+
+
 def check_autograd_guard(state_dict) -> None:
     """fused_rdb has no backward: with autograd on, a CUDA input or packed
     weight that requires grad raises instead of cutting the graph; under
@@ -541,10 +613,23 @@ def check_autograd_guard(state_dict) -> None:
             raised[name] = "no backward" in str(err)
     with torch.no_grad():
         fused_rdb(x, packed)
+    y = torch.zeros(1, 4, 16, 64, device="cuda").permute(0, 3, 1, 2).requires_grad_()
+    bias, tail_before = torch.zeros(16, device="cuda"), bias_lrelu.launches
+    try:
+        bias_lrelu(y, bias, True)
+        raised["tail"] = False
+    except RuntimeError as err:
+        raised["tail"] = "no backward" in str(err)
+    with torch.no_grad():
+        bias_lrelu(y, bias, True)
     torch.cuda.synchronize()
-    emit(autograd_guard={"raised": raised, "launches_under_no_grad": fused_rdb.launches - before})
-    check(all(raised.values()), f"fused_rdb did not raise under autograd: {raised}")
+    emit(autograd_guard={"raised": raised, "launches_under_no_grad": fused_rdb.launches - before,
+                         "tail_launches_under_no_grad": bias_lrelu.launches - tail_before})
+    check(all(raised.values()), f"fused_rdb or the tail kernel did not raise under autograd: "
+                                f"{raised}")
     check(fused_rdb.launches - before == 1, "fused_rdb under no_grad did not launch once")
+    check(bias_lrelu.launches - tail_before == 1,
+          "the tail kernel under no_grad did not launch once")
 
 
 def psnr(a: np.ndarray, b: np.ndarray) -> float:
@@ -561,26 +646,28 @@ def serve(pipe: SRPipeline, dtype: torch.dtype, tree: np.ndarray, wide: np.ndarr
                 ("wide_tiled", wide, math.ceil(n_tiles / pipe.tile_batch))]
     outputs = {}
     for name, image, forwards in requests:
-        before = fused_rdb.launches
+        before, tail_before = fused_rdb.launches, bias_lrelu.launches
         t0 = time.perf_counter()
         out = pipe.upscale(image)
         seconds = time.perf_counter() - t0
-        launched = fused_rdb.launches - before
+        launched, tail = fused_rdb.launches - before, bias_lrelu.launches - tail_before
         h, w, _ = image.shape
         emit(request={"dtype": DTYPE_NAME[dtype], "name": name, "in": [h, w],
                       "out": list(out.shape), "seconds": round(seconds, 4),
-                      "fused_rdb_launches": launched})
+                      "fused_rdb_launches": launched, "bias_lrelu_launches": tail})
         check(out.shape == (4 * h, 4 * w, 3), f"{name} output shape {out.shape}")
         check(bool(np.isfinite(out).all()), f"{name} output not finite")
         check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, f"{name} output outside [0, 1]")
         check(launched == RDBS_PER_FORWARD * forwards,
               f"{name}: fused_rdb launched {launched} times, expected {RDBS_PER_FORWARD * forwards}")
+        count_tail(f"serve.{name}", dtype, tail, launched)
         outputs[name] = out
     # the golden crop is a plain Generator forward of the ragged 67x93 input
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     crop = torch.from_numpy(np.ascontiguousarray(tree[CROP]))[None].cuda()
     outputs["crop67x93"] = pipe.apply(crop)[0].cpu().numpy()
     check(fused_rdb.launches - before == RDBS_PER_FORWARD, "crop67x93 launch count")
+    count_tail("serve.crop67x93", dtype, bias_lrelu.launches - tail_before, RDBS_PER_FORWARD)
     return outputs
 
 
@@ -884,11 +971,12 @@ def drive_eval(tree: np.ndarray, rdb_shapes: dict) -> dict:
         lr_dir, hr_dir = write_eval_pairs(tree, tmp)
 
         def run(label, dtype, call):
-            fused_rdb.launches = 0
+            fused_rdb.launches = bias_lrelu.launches = 0
             t0 = time.perf_counter()
             result = call()
             seconds = time.perf_counter() - t0
             launched = fused_rdb.launches
+            count_tail(f"eval.{label}", dtype, bias_lrelu.launches, launched)
             launches[dtype] = launches.get(dtype, 0) + launched
             emit(eval={"entry": label, "dtype": DTYPE_NAME[dtype], "seconds": round(seconds, 3),
                        "fused_rdb_launches": launched, "result": result})
@@ -1202,9 +1290,10 @@ def drive_train_cli(tree_sr: np.ndarray) -> int:
     validate = trainer.validate
 
     def counted(*args, **kwargs):
-        before = fused_rdb.launches
+        before, tail_before = fused_rdb.launches, bias_lrelu.launches
         score = validate(*args, **kwargs)
-        validations.append((fused_rdb.launches - before, len(args[2]), score))
+        validations.append((fused_rdb.launches - before, len(args[2]), score,
+                            bias_lrelu.launches - tail_before))
         return score
 
     cwd = os.getcwd()
@@ -1221,17 +1310,23 @@ def drive_train_cli(tree_sr: np.ndarray) -> int:
                      "--test-hr-dir", os.path.join(tmp, "none"), "--batch-size",
                      str(TRAIN_BATCH), "--epochs", str(epochs), "--exp-name", "chip_smoke",
                      "--no-tensorboard", *resume])
-                fused_rdb.launches, seen = 0, len(validations)
+                fused_rdb.launches = bias_lrelu.launches = 0
+                seen = len(validations)
                 t0 = time.perf_counter()
                 trainer.main(args)
                 seconds = time.perf_counter() - t0
                 launched = validations[seen:]
-                validation = sum(n for n, _, _ in launched)
+                validation = sum(n for n, _, _, _ in launched)
+                tail = sum(t for _, _, _, t in launched)
+                count_tail("train_cli.validation", torch.bfloat16, tail, validation)
+                count_tail("train_cli.steps", torch.bfloat16, bias_lrelu.launches - tail,
+                           fused_rdb.launches - validation)
                 runs.append({"epochs": epochs, "resume": bool(resume), "seconds": seconds,
                              "fused_rdb_launches_training": fused_rdb.launches - validation,
                              "fused_rdb_launches_validation": validation,
-                             "validated_images": sum(k for _, k, _ in launched),
-                             "valid_niqe": [score for _, _, score in launched]})
+                             "bias_lrelu_launches_validation": tail,
+                             "validated_images": sum(k for _, k, _, _ in launched),
+                             "valid_niqe": [score for _, _, score, _ in launched]})
             tree = ckpt_lib.load_checkpoint(os.path.join(tmp, "results", "chip_smoke", "g_last"))
         finally:
             os.chdir(cwd)
@@ -1288,7 +1383,7 @@ def time_train(gpu: str) -> None:
     flags = [(bool(coins.random() < dcfg.resize_probs1[0]),
               bool(coins.random() < dcfg.resize_probs2[0]))
              for _ in range(TRAIN_WARMUP + TRAIN_TIMED)]
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     torch.cuda.reset_peak_memory_stats()
     for i in range(TRAIN_WARMUP):
         state, metrics = step(state, batches[i % 2], *flags[i])
@@ -1302,6 +1397,7 @@ def time_train(gpu: str) -> None:
     ms = start.elapsed_time(end) / TRAIN_TIMED
     check(bool(torch.isfinite(metrics["loss"])), "a timed training step gave a non-finite loss")
     check(fused_rdb.launches == before, "a training step launched fused_rdb")
+    count_tail("train_time", torch.bfloat16, bias_lrelu.launches - tail_before, 0)
     emit(train_time={"card": gpu, "batch": TRAIN_BATCH, "steps_timed": TRAIN_TIMED,
                      "warmup_steps": TRAIN_WARMUP, "up_flags": flags[TRAIN_WARMUP:],
                      "ms_per_step": ms, "images_per_second": TRAIN_BATCH / ms * 1e3,
@@ -1643,9 +1739,10 @@ def drive_gan_cli(tree_sr: np.ndarray, gpu: str) -> dict:
     resume_generator, save_many = trainer.resume_generator, ckpt_lib.AsyncSaver.save_many
 
     def counted(*args, **kwargs):
-        before = fused_rdb.launches
+        before, tail_before = fused_rdb.launches, bias_lrelu.launches
         score = validate(*args, **kwargs)
-        validations.append((fused_rdb.launches - before, len(args[2]), score))
+        validations.append((fused_rdb.launches - before, len(args[2]), score,
+                            bias_lrelu.launches - tail_before))
         return score
 
     def recording(*args, **kwargs):
@@ -1682,18 +1779,24 @@ def drive_gan_cli(tree_sr: np.ndarray, gpu: str) -> dict:
                      str(TRAIN_BATCH), "--epochs", str(epochs), "--exp-name", "chip_smoke_gan",
                      "--resume", WEIGHTS, "--content-backbone", "trunk", "--no-tensorboard",
                      *resume_args])
-                fused_rdb.launches, seen, first = 0, len(validations), len(steps)
+                fused_rdb.launches = bias_lrelu.launches = 0
+                seen, first = len(validations), len(steps)
                 t0 = time.perf_counter()
                 trainer.main(args)
                 seconds = time.perf_counter() - t0
                 launched = validations[seen:]
-                validation = sum(n for n, _, _ in launched)
+                validation = sum(n for n, _, _, _ in launched)
+                tail = sum(t for _, _, _, t in launched)
+                count_tail("gan_cli.validation", torch.bfloat16, tail, validation)
+                count_tail("gan_cli.steps", torch.bfloat16, bias_lrelu.launches - tail,
+                           fused_rdb.launches - validation)
                 runs.append({"epochs": epochs, "resume": bool(resume_args), "seconds": seconds,
                              "resumed_epoch": resumed[-1] if resume_args else None,
                              "fused_rdb_launches_training": fused_rdb.launches - validation,
                              "fused_rdb_launches_validation": validation,
-                             "validated_images": sum(k for _, k, _ in launched),
-                             "valid_niqe": [score for _, _, score in launched],
+                             "bias_lrelu_launches_validation": tail,
+                             "validated_images": sum(k for _, k, _, _ in launched),
+                             "valid_niqe": [score for _, _, score, _ in launched],
                              "steps": steps[first:]})
             results = os.path.join(tmp, "results", "chip_smoke_gan")
             epoch_1 = {kind: ckpt_lib.load_checkpoint(
@@ -1705,9 +1808,10 @@ def drive_gan_cli(tree_sr: np.ndarray, gpu: str) -> dict:
             os.chdir(cwd)
             trainer.validate, trainer.make_gan_train_step = validate, make_step
             trainer.resume_generator, ckpt_lib.AsyncSaver.save_many = resume_generator, save_many
-        fused_rdb.launches = 0
+        fused_rdb.launches = bias_lrelu.launches = 0
         check_npz_snapshot(os.path.join(results, "g_last"), gpu)
         snapshot_launches = fused_rdb.launches
+        count_tail("npz_snapshot", torch.bfloat16, bias_lrelu.launches, snapshot_launches)
     steps_per_epoch = TRAIN_CROPS // TRAIN_BATCH
     finite = all(bool(torch.isfinite(v).all()) for tree in (g_last, d_last)
                  for v in tree["params"].values())
@@ -1797,7 +1901,7 @@ def time_gan(gpu: str) -> None:
     flags = [(bool(coins.random() < dcfg.resize_probs1[0]),
               bool(coins.random() < dcfg.resize_probs2[0]))
              for _ in range(GAN_WARMUP + GAN_TIMED)]
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     torch.cuda.reset_peak_memory_stats()
     for i in range(GAN_WARMUP):
         state, metrics = step(state, batches[i % 2], *flags[i])
@@ -1812,6 +1916,7 @@ def time_gan(gpu: str) -> None:
     values = {k: float(metrics[k]) for k in GAN_METRICS}
     check(all(math.isfinite(v) for v in values.values()), f"a timed GAN step gave {values}")
     check(fused_rdb.launches == before, "a GAN step launched fused_rdb")
+    count_tail("gan_time", torch.bfloat16, bias_lrelu.launches - tail_before, 0)
     emit(gan_time={"card": gpu, "batch": TRAIN_BATCH, "backbone": "VGG19 to conv5_4, random",
                    "steps_timed": GAN_TIMED, "warmup_steps": GAN_WARMUP,
                    "up_flags": flags[GAN_WARMUP:], "ms_per_step": ms,
@@ -2076,11 +2181,12 @@ def tiled_devices(wide: np.ndarray, outputs: dict, gpu: str) -> dict:
         n_tiles = math.ceil(wide.shape[0] / core) * math.ceil(wide.shape[1] / core)
         chunks = sum(min(len(devices), n_tiles - start)
                      for start in range(0, n_tiles, pipe.tile_batch))
-        fused_rdb.launches = 0
+        fused_rdb.launches = bias_lrelu.launches = 0
         t0 = time.perf_counter()
         out = pipe.upscale(wide)
         seconds = time.perf_counter() - t0
         launches[dtype] = fused_rdb.launches
+        count_tail("tiled_devices", dtype, bias_lrelu.launches, launches[dtype])
         one = outputs[dtype]["wide_tiled"]
         name = DTYPE_NAME[dtype]
         # a replica's forward must not wait on the host, or the devices could
@@ -2157,7 +2263,7 @@ def front_end_profiling(tree: np.ndarray, gpu: str) -> int:
 
     pipe = SRPipeline(WEIGHTS, bfloat16=True, device="cuda")
     x = torch.from_numpy(tree)[None].cuda()
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     pipe.apply(x)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2183,6 +2289,8 @@ def front_end_profiling(tree: np.ndarray, gpu: str) -> int:
                               "items": "output MP", "steady_mean_s": timer.steady_mean})
     check(k1_events > 0, f"the trace never names {RDB_KERNEL_NAMES[0]}")
     check(math.isfinite(timer.steady_mean), "StepTimer has no steady-state samples")
+    count_tail("front_end_profiling", torch.bfloat16, bias_lrelu.launches - tail_before,
+               fused_rdb.launches - before)
     return fused_rdb.launches - before
 
 
@@ -2207,13 +2315,15 @@ def front_end_http(tree: np.ndarray, wide: np.ndarray, gpu: str) -> int:
         for name, image in (("tree", tree), ("wide_tiled", wide)):
             body = encode_png((image * 255.0 + 0.5).astype(np.uint8))
             lr = decode_png(body).astype(np.float32) / 255.0
-            before = fused_rdb.launches
+            before, tail_before = fused_rdb.launches, bias_lrelu.launches
             t1 = time.perf_counter()
             req = urllib.request.Request(url + "/upscale", data=body, method="POST")
             with urllib.request.urlopen(req, timeout=300) as resp:
                 png, server_s = resp.read(), float(resp.headers["X-Latency-Seconds"])
             client_s = time.perf_counter() - t1
             launched = fused_rdb.launches - before
+            count_tail(f"front_end_http.{name}", torch.bfloat16, bias_lrelu.launches - tail_before,
+                       launched)
             got = decode_png(png)
             with torch.no_grad():
                 expected = serve_http.quantize(pipeline.upscale(lr))
@@ -2285,10 +2395,11 @@ def front_end_graft_entry(gpu: str) -> int:
     from real_esrgan_tpu_torch import graft_entry
 
     fn, (params, x) = graft_entry.entry()
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     out = fn(params, x)
     torch.cuda.synchronize()
     launched = fused_rdb.launches - before
+    count_tail("graft_entry", torch.bfloat16, bias_lrelu.launches - tail_before, launched)
     t0 = time.perf_counter()
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
@@ -2334,10 +2445,12 @@ def front_end_parity_scripts(tree_sr: np.ndarray, gpu: str) -> int:
                             ("card", ["--reference-sr-dir", os.path.join(tmp, "cpu_sr", "Set5"),
                                       "--pixel-match-psnr", str(PIXEL_MATCH_DB)])):
             report = os.path.join(tmp, f"{name}.json")
-            before = fused_rdb.launches
+            before, tail_before = fused_rdb.launches, bias_lrelu.launches
             with contextlib.redirect_stdout(io.StringIO()):
                 rc = validate_parity.main(common + extra + ["--report", report])
             launched = fused_rdb.launches - before
+            count_tail(f"parity_scripts.{name}", torch.bfloat16,
+                       bias_lrelu.launches - tail_before, launched)
             with open(report) as f:
                 verdicts[name] = {"rc": rc, **json.load(f)}
     emit(front_end_parity_scripts={"card": gpu, "lr_shapes": shapes, "verdicts": verdicts,
@@ -2359,10 +2472,11 @@ def front_end_tile_sweep(gpu: str) -> int:
     from real_esrgan_tpu_torch.tools import tile_sweep
 
     printed = io.StringIO()
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     with contextlib.redirect_stdout(printed):
         tile_sweep.main(["--combos", SWEEP_COMBOS, "--seam"])
     launched = fused_rdb.launches - before
+    count_tail("tile_sweep", torch.bfloat16, bias_lrelu.launches - tail_before, launched)
     rows = [json.loads(line) for line in printed.getvalue().splitlines() if line.startswith("{")]
     emit(front_end_tile_sweep={"card": gpu, "in_size": 2048, "rows": rows,
                                "fused_rdb_launches": launched})
@@ -2465,13 +2579,15 @@ def research_perf_lab(gpu: str) -> int:
     from real_esrgan_tpu_torch.models import Generator
     from real_esrgan_tpu_torch.tools import perf_lab
 
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     t0 = time.perf_counter()
     result, _ = quiet(perf_lab.main, ["all", "--iters", str(PERF_LAB_ITERS)])
     result["gen_no_subpixel"], _ = quiet(perf_lab.main, ["gen", "--no-subpixel", "--iters",
                                                          str(PERF_LAB_ITERS)])
     result["gen_no_subpixel"] = result["gen_no_subpixel"]["gen"]
     seconds, launched = time.perf_counter() - t0, fused_rdb.launches - before
+    # gen launches the tail kernel 3 times a forward, gen --no-subpixel once (conv3)
+    tail = TAIL_LAUNCHES["bf16"]["perf_lab"] = bias_lrelu.launches - tail_before
 
     kernels, biases = perf_lab.rand_weights("cuda")
     x = (torch.rand((2, 64, 96, perf_lab.C), generator=torch.Generator().manual_seed(3))
@@ -2503,6 +2619,7 @@ def research_perf_lab(gpu: str) -> int:
     check(subpixel_ok, f"gen without subpixel differs from gen by {subpixel_err}")
     check(result["gen"]["fused_rdb_launches"] > 0 and not result["gen_no_subpixel"]["subpixel"],
           "perf_lab gen never launched K1")
+    check(tail > 0, "perf_lab gen never launched the tail kernel")
     return launched
 
 
@@ -2544,7 +2661,7 @@ def research_nan_probe(train_dir: str, out: str, gpu: str) -> None:
     from real_esrgan_tpu_torch.tools import explode_analysis, nan_probe
 
     argv = ["--train-dir", train_dir, "--epochs", "1", "--batch-size", "16", "--out", out]
-    before = fused_rdb.launches
+    before, tail_before = fused_rdb.launches, bias_lrelu.launches
     t0 = time.perf_counter()
     result, printed = quiet(nan_probe.main, argv)
     seconds = time.perf_counter() - t0
@@ -2562,6 +2679,8 @@ def research_nan_probe(train_dir: str, out: str, gpu: str) -> None:
                                                "--batch", "0"])
     explode_seconds = time.perf_counter() - t0
     launched = fused_rdb.launches - before
+    # capture_outputs runs the forward under autograd, so conv3's hooks fire
+    count_tail("nan_probe", torch.bfloat16, bias_lrelu.launches - tail_before, launched)
     emit(research_tools={"tool": "nan_probe", "card": gpu, "seconds": seconds,
                          "steps": result["steps"], "bad_steps": result["bad_steps"],
                          "verdict": printed[-1], "poisoned": POISONED,
@@ -2580,6 +2699,8 @@ def research_nan_probe(train_dir: str, out: str, gpu: str) -> None:
           f"nan_probe wrote {artifacts}")
     for dtype in ("bf16", "f32"):
         bad = explode[dtype]["nonfinite_outputs"]
+        check({"conv3", "conv3.0"} <= {name for name, _, _ in bad},
+              f"explode_analysis [{dtype}] recorded no non-finite output of conv3")
         check(bool(bad) and bad[0][0].startswith("trunk.5"),
               f"explode_analysis [{dtype}] located no non-finite output in trunk.5: {bad[:3]}")
     check(launched == 0, f"nan_probe and explode_analysis launched K1 {launched} times")
@@ -2770,9 +2891,11 @@ def orbax_serve(tree: np.ndarray, tmp: str) -> dict:
         outs = {}
         for route, path in (("orbax", ORBAX_G), ("npz_cut", cut)):
             pipe = SRPipeline(path, num_rrdb=1, bfloat16=dtype == torch.bfloat16, device="cuda")
-            fused_rdb.launches = 0
+            fused_rdb.launches = bias_lrelu.launches = 0
             outs[route] = pipe.upscale(tree)
             outs[route + "_launches"] = fused_rdb.launches
+            count_tail(f"orbax_serve.{route}", dtype, bias_lrelu.launches, fused_rdb.launches,
+                       rdbs_per_forward=3)
             del pipe
         launches[dtype] = outs["orbax_launches"]
         same = bool(np.array_equal(outs["orbax"], outs["npz_cut"]))
@@ -2855,8 +2978,9 @@ def orbax_resume(gpu: str) -> None:
                                   reject_limit=cfg.grad_reject_limit,
                                   rollback_after=cfg.rollback_after,
                                   reject_mult=cfg.grad_reject_mult)
-    fused_rdb.launches = 0
+    fused_rdb.launches = bias_lrelu.launches = 0
     state, metrics = step.update(state, lr, hr)
+    count_tail("orbax_resume", torch.float32, bias_lrelu.launches, fused_rdb.launches)
     after = {"step": state.step, "count": int(state.opt_state.count),
              "lr_scale": float(state.guard.lr_scale),
              "rejected_total": int(state.guard.rejected_total)}
@@ -2894,8 +3018,9 @@ def orbax_resume(gpu: str) -> None:
     before = counts(state)
     step = esrgan.make_gan_train_step(generator, discriminator, vgg, g_tx, d_tx, None, None,
                                       degrade_cfg.DegradationConfig(), cfg)
-    fused_rdb.launches = 0
+    fused_rdb.launches = bias_lrelu.launches = 0
     state, metrics = step.update(state, lr, hr)
+    count_tail("orbax_resume", torch.float32, bias_lrelu.launches, fused_rdb.launches)
     after = counts(state)
     losses = {k: float(metrics[k]) for k in ("g_loss", "d_loss")}
     emit(orbax_resume={"stage": 2, "card": gpu, "jax": jax, "resumed": before,
@@ -2957,6 +3082,28 @@ def bound(flops: float, moved: float) -> dict:
     against bytes over the memory rate."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def tail_record(dtype: torch.dtype, shape: tuple, launches: int) -> dict:
+    """The tail kernel with the shuffle at ``shape``, y's (N, 4 C, H, W): its
+    time and its plain version's in turns, both again inside a CUDA graph of
+    10 launches, and its bound, the bytes it moves (y read, the output
+    written) over HBM's rate; no one library call computes it."""
+    y, bias = tail_inputs(shape, True, dtype, torch.Generator(device="cuda").manual_seed(7))
+    y = y.contiguous(memory_format=torch.channels_last)
+    kernel, plain = (lambda: bias_lrelu(y, bias, True)), (lambda: bias_lrelu_plain(y, bias, True))
+    check(bool(torch.equal(kernel(), plain())),
+          f"the tail kernel {DTYPE_NAME[dtype]} differs from bias_lrelu_plain at {shape}")
+    ms, plain_ms = in_turns(kernel, plain, 10)
+    device_ms, plain_device_ms = graph_ms(kernel, 10), graph_ms(plain, 10)
+    moved = 2 * y.numel() * y.element_size() + bias.numel() * bias.element_size()
+    return {"name": f"tail_epilogue[{DTYPE_NAME[dtype]}]", "route": "cuda",
+            "source": "real_esrgan_tpu_torch/csrc/tail_epilogue.cu",
+            "replaces": "real_esrgan_tpu/models/rrdbnet.py:150", "launches": launches,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": moved / PEAK_BYTES * 1e3, "bound_by": "bytes", "library_ms": None,
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms, "shape": list(shape),
+            "shuffle": True, "device_tb_per_s": moved / device_ms / 1e9}
 
 
 def conv_record(launches: int) -> dict:
@@ -3039,17 +3186,22 @@ def main() -> int:
     golden = np.load(GOLDEN)
     launches, outputs = {}, {}
     main_shapes = {dtype: set() for dtype in TOLERANCE}
+    tail_shapes = {dtype: set() for dtype in TOLERANCE}
     trunk_inputs = {}
     for dtype in (torch.bfloat16, torch.float32):
         pipe = SRPipeline(WEIGHTS, bfloat16=dtype == torch.bfloat16, device="cuda")
         hook = record_rdb_shapes(main_shapes)
-        fused_rdb.launches = 0
-        outputs[dtype] = serve(pipe, dtype, tree, wide)
+        fused_rdb.launches = bias_lrelu.launches = 0
+        with record_tail_shapes(tail_shapes):
+            outputs[dtype] = serve(pipe, dtype, tree, wide)
         launches[dtype] = fused_rdb.launches
         hook.remove()
         check(launches[dtype] > 0, f"main path ({DTYPE_NAME[dtype]}) never launched fused_rdb")
         emit(rdb_shapes={"path": "serve", "dtype": DTYPE_NAME[dtype],
                          "shapes": [list(s) for s in sorted(main_shapes[dtype])]})
+        emit(tail_shapes={"path": "serve", "dtype": DTYPE_NAME[dtype],
+                          "shapes": [[list(s), shuffle] for s, shuffle in
+                                     sorted(tail_shapes[dtype])]})
         profile = profile_forward(pipe, tree)
         emit(profile={"dtype": DTYPE_NAME[dtype], "request": "tree forward", **profile})
         trunk_inputs[dtype] = capture_trunk_inputs(pipe, tree)
@@ -3071,6 +3223,7 @@ def main() -> int:
     eval_launches = drive_eval(tree, main_shapes)
     check_niqe()
     check_kernels(state_dict, main_shapes)
+    check_tail_kernel(tail_shapes)
     for dtype in (torch.bfloat16, torch.float32):
         check_trunk_activations(state_dict, trunk_inputs.pop(dtype), dtype)
     check_autograd_guard(state_dict)
@@ -3102,9 +3255,14 @@ def main() -> int:
     emit(fused_rdb_launches={DTYPE_NAME[d]: {"serve": launches[d], "eval": eval_launches[d],
                                              **trainers[d]}
                              for d in launches})
+    emit(bias_lrelu_launches=TAIL_LAUNCHES)
     kernels = [kernel_record(state_dict, d, launches[d] + eval_launches[d]
                              + sum(trainers[d].values()))
                for d in (torch.bfloat16, torch.float32)]
+    # upconv2 of the batch cell (16 x 256^2 in) in bf16, of the tree image in f32
+    kernels += [tail_record(d, shape, sum(TAIL_LAUNCHES[DTYPE_NAME[d]].values()))
+                for d, shape in ((torch.bfloat16, (16, 256, 512, 512)),
+                                 (torch.float32, (1, 256, 512, 1024)))]
     kernels.append(conv_record(tool_launches["conv3x3"]))
     kernels += [mm_record(kind, m, k, n, tool_launches[kind])
                 for kind in ("mm_grid", "mm_resident") for m, k, n in conv_exp.GATE_SHAPES]

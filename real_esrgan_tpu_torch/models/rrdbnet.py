@@ -7,6 +7,9 @@ upconvs (``subpixel=False``: nearest x2 upsample, then the 3x3 conv, on the
 same parameters), two output convs, clamp to [0, 1].  The public layout is NHWC float
 in [0, 1].  Inside, activations are NCHW tensors in ``channels_last`` memory,
 physically NHWC, so the fused RDB kernel reads and writes them with no copy.
+On a CUDA device, where autograd records nothing, each upconv's and
+``conv3``'s bias, LeakyReLU and pixel shuffle are one pass of the tail kernel
+(``ops/tail_epilogue.py``), with the same bits as the plain ops.
 
 Parameter names follow the reference state_dict (``conv1``,
 ``trunk.{i}.rdb{j}.conv{k}``, ``conv2``, ``upsampling{1,2}.0``, ``conv3.0``,
@@ -38,6 +41,7 @@ from real_esrgan_tpu_torch.ops.fused_rdb import (
     box_rdb_weights, fused_rdb, lrelu, pack_rdb_weights, rdb_plain, scalar_like,
     split_rdb_weights,
 )
+from real_esrgan_tpu_torch.ops.tail_epilogue import bias_lrelu, bias_lrelu_plain
 
 
 class _StClamp(torch.autograd.Function):
@@ -113,9 +117,12 @@ class Conv3x3(nn.Module):
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 3, 3, device=device))
         self.bias = nn.Parameter(torch.empty(out_channels, device=device))
 
+    def convolve(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution alone, without the bias."""
+        return F.conv2d(x, self.weight.to(x.dtype), padding=1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight.to(x.dtype), padding=1)
-        return y + self.bias.to(x.dtype)[:, None, None]
+        return self.convolve(x) + self.bias.to(x.dtype)[:, None, None]
 
 
 # Tap-transfer matrices of the subpixel upconv: row r of the low-res kernel
@@ -140,21 +147,32 @@ def _subpix_transfer(dtype: torch.dtype, device: torch.device) -> List[torch.Ten
     return _SUBPIX_TENSORS[key]
 
 
+def _fused_epilogue(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """Whether a tail conv's bias, LeakyReLU and shuffle run as one kernel
+    pass (``ops.tail_epilogue.bias_lrelu``): ``x`` is on a CUDA device and
+    autograd would record nothing, since the kernel has no backward."""
+    records = torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad
+                                                                  for p in params))
+    return x.is_cuda and not records
+
+
 def _subpixel_upconv(x: torch.Tensor, weight: torch.Tensor,
                      bias: torch.Tensor) -> torch.Tensor:
     """nearest-x2-upsample -> 3x3 conv -> LeakyReLU, as one low-res conv with
     a folded (4*Cout, Cin, 3, 3) kernel (output order (a, b, o)) and a pixel
-    shuffle, exactly as the JAX ``_subpixel_upconv`` computes it."""
-    cout = weight.shape[0]
+    shuffle, exactly as the JAX ``_subpixel_upconv`` computes it.  The bias,
+    the LeakyReLU and the shuffle are one kernel pass where
+    ``_fused_epilogue`` allows, with the same bits."""
     hwio = weight.permute(2, 3, 1, 0)
     t = _subpix_transfer(weight.dtype, weight.device)
     w4 = torch.cat([torch.einsum("ru,uvio,cv->rcio", ta, hwio, tb)
                     for ta in t for tb in t], dim=-1)
     y = F.conv2d(x, w4.permute(3, 2, 0, 1).to(x.dtype), padding=1)
-    y = lrelu(y + bias.repeat(4).to(x.dtype)[:, None, None])
-    n, _, h, w = y.shape
-    y = y.reshape(n, 2, 2, cout, h, w).permute(0, 3, 4, 1, 5, 2)
-    return y.reshape(n, cout, 2 * h, 2 * w).contiguous(memory_format=torch.channels_last)
+    if not _fused_epilogue(x, weight, bias):
+        return bias_lrelu_plain(y, bias, shuffle=True)
+    # the kernel reads channels_last; the conv returns NCHW where x's strides
+    # suggest it, as for a batch of one made from NumPy (its batch stride is 0)
+    return bias_lrelu(y.contiguous(memory_format=torch.channels_last), bias, shuffle=True)
 
 
 class ResidualDenseBlock(nn.Module):
@@ -361,7 +379,12 @@ class Generator(nn.Module):
                 out = _subpixel_upconv(out, up[0].weight, up[0].bias)
             else:
                 out = lrelu(up[0](F.interpolate(out, scale_factor=2, mode="nearest")))
-        out = lrelu(self.conv3(out))
+        conv3 = self.conv3[0]
+        if _fused_epilogue(out, conv3.weight, conv3.bias):
+            # conv3's output with its bias never exists, so hooks on conv3 do not run
+            out = bias_lrelu(conv3.convolve(out), conv3.bias, shuffle=False)
+        else:
+            out = lrelu(self.conv3(out))
         out = self.conv4(out).float().permute(0, 2, 3, 1)
         if not self.clamp:
             return out

@@ -95,12 +95,14 @@ def capture_outputs(model: torch.nn.Module, params: Dict[str, torch.Tensor],
                     0, 2, 3, 1)
         handles.append(module.register_forward_hook(hook))
     try:
-        with torch.no_grad():
-            out = functional_call(model, params, (x,))
+        # with autograd recording, every module runs: under no_grad on a CUDA
+        # device the tail kernel takes conv3's place and its hooks never fire
+        with torch.enable_grad():
+            out = functional_call(model, params, (x.detach().requires_grad_(),))
     finally:
         for handle in handles:
             handle.remove()
-    return out, outputs
+    return out.detach(), outputs
 
 
 @dataclasses.dataclass

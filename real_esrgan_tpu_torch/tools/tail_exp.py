@@ -4,6 +4,7 @@ the packed-RDB shapes: the port of ``tools/tail_exp.py``.
     python -m real_esrgan_tpu_torch.tools.tail_exp --mode conv4
     python -m real_esrgan_tpu_torch.tools.tail_exp --mode nchw
     python -m real_esrgan_tpu_torch.tools.tail_exp --mode int8
+    python -m real_esrgan_tpu_torch.tools.tail_exp --mode epilogue
 
 Shapes are the JAX tool's: batch ``B`` = 8; the tail at the x4 resolution of
 a 256 LR image (1024^2 x 64, and the (2, 2)-window pre-shuffle form at
@@ -11,6 +12,16 @@ a 256 LR image (1024^2 x 64, and the (2, 2)-window pre-shuffle form at
 with 3 output channels: a GEMM with N = 3 uses a sliver of a tensor-core
 tile, and the candidates are exact reformulations that trade that padding
 against more input channels or a repack.
+
+``epilogue`` times the port's own tail kernel, ``ops/tail_epilogue.py``'s
+``bias_lrelu`` (bias, LeakyReLU and the x2 pixel shuffle in one pass), beside
+its plain PyTorch version at the batch cell's shapes: ``EPILOGUE_B`` = 16
+LR images of ``EPILOGUE_SIZE`` = 256^2, so upconv1's (16, 256, 256^2),
+upconv2's (16, 256, 512^2) and conv3's (16, 64, 1024^2), each in bfloat16
+and float32, with the kernel's least time by bytes (y read once, the
+output written once, at ``HBM_BYTES_PER_S``) and whether the two agree bit
+for bit.  These time a host loop between CUDA events: each call is a
+millisecond or more.
 
 Timing follows ``tools/perf_lab.py``: each op is chained by a scalar carry
 (the mean of one output scales the next input; for int8 the sum modulo 113
@@ -32,7 +43,8 @@ import torch
 import torch.nn.functional as F
 
 from real_esrgan_tpu_torch import resolve_device
-from real_esrgan_tpu_torch.tools.conv_exp import time_in_graph
+from real_esrgan_tpu_torch.ops.tail_epilogue import bias_lrelu, bias_lrelu_plain
+from real_esrgan_tpu_torch.tools.conv_exp import time_in_graph, time_launches
 from real_esrgan_tpu_torch.tools.perf_lab import (
     C, G, RDB_FLOPS_PER_PX, _conv, chain_op_time, im2col, pack_source_major, rand_weights,
     rdb_packed, report,
@@ -42,6 +54,9 @@ B = 8
 TAIL_SIZE = 1024  # the x4 resolution of the bench's 256 LR image
 RDB_SIZE = 256
 INT8_SHAPES = ((64, 192), (32, 160), (32, 128), (32, 96), (32, 64))
+EPILOGUE_B = 16      # the batch cell's LR batch
+EPILOGUE_SIZE = 256  # and its LR side
+HBM_BYTES_PER_S = 3.35e12  # an H100 SXM's device memory
 
 
 def _rand(shape, device, seed: int = 0, scale: float = 1.0, dtype=torch.bfloat16):
@@ -257,7 +272,39 @@ def run_int8(args, device) -> List[dict]:
     return out
 
 
-MODES = {"conv4": run_conv4, "int8": run_int8, "nchw": run_nchw}
+def run_epilogue(args, device) -> List[dict]:
+    """``bias_lrelu`` against ``bias_lrelu_plain`` at the tail's three
+    launches of a batch-cell forward."""
+    s, c = EPILOGUE_SIZE, 64
+    cases = (("upconv1", s, True), ("upconv2", 2 * s, True), ("conv3", 4 * s, False))
+    out = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for i, (name, side, shuffle) in enumerate(cases):
+            groups = 4 if shuffle else 1
+            y = (_rand((EPILOGUE_B, side, side, groups * c), device, 20 + i, 2.0, dtype)
+                 - 1.0).permute(0, 3, 1, 2)
+            bias = _rand((c,), device, 30 + i, 0.2, torch.float32) - 0.1
+            with torch.no_grad():
+                ref = bias_lrelu_plain(y, bias, shuffle)
+                equal = torch.equal(bias_lrelu(y.clone(memory_format=torch.channels_last),
+                                               bias, shuffle), ref)
+                del ref
+                ms = time_launches(lambda: bias_lrelu(y, bias, shuffle), args.iters, device) * 1e3
+                plain_ms = time_launches(lambda: bias_lrelu_plain(y, bias, shuffle), args.iters,
+                                         device) * 1e3
+            nbytes = 2 * y.numel() * y.element_size()
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            label = f"{name} {str(dtype)[6:]} {tuple(y.shape)}"
+            out.append(report(f"{label:40s} kernel {ms:8.4f} ms  bound {bound_ms:8.4f} ms  "
+                              f"plain {plain_ms:8.4f} ms  equal {equal}", mode="epilogue",
+                              case=name, dtype=str(dtype)[6:], shape=list(y.shape),
+                              shuffle=shuffle, ms=ms, bound_ms=bound_ms, plain_ms=plain_ms,
+                              bytes=nbytes, tb_per_s=nbytes / ms / 1e9, equal=equal))
+            del y
+    return out
+
+
+MODES = {"conv4": run_conv4, "int8": run_int8, "nchw": run_nchw, "epilogue": run_epilogue}
 
 
 def build_parser() -> argparse.ArgumentParser:

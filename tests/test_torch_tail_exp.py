@@ -12,7 +12,8 @@
   outputs are equal bit for bit.
 * The tail's reshapes and (2, 2)-window conv against JAX's (einops and
   ``_conv`` with stride 2), and every mode run once on the CPU at batch 1
-  (``B``, ``TAIL_SIZE``, ``RDB_SIZE`` shrunk).
+  (``B``, ``TAIL_SIZE``, ``RDB_SIZE``, ``EPILOGUE_B`` and ``EPILOGUE_SIZE``
+  shrunk).
 """
 
 import os
@@ -115,11 +116,13 @@ def test_tail_reshapes_and_window_conv_match_jax():
     np.testing.assert_allclose(ours, ref, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("mode,count", [("conv4", 5), ("nchw", 4), ("int8", 7)])
+@pytest.mark.parametrize("mode,count", [("conv4", 5), ("nchw", 4), ("int8", 7), ("epilogue", 6)])
 def test_every_mode_runs_on_the_cpu(monkeypatch, mode, count):
     monkeypatch.setattr(tail_exp, "B", 1)
     monkeypatch.setattr(tail_exp, "TAIL_SIZE", 32)
     monkeypatch.setattr(tail_exp, "RDB_SIZE", 16)
+    monkeypatch.setattr(tail_exp, "EPILOGUE_B", 1)
+    monkeypatch.setattr(tail_exp, "EPILOGUE_SIZE", 8)
     records = tail_exp.main(["--mode", mode, "--iters", "1", "--cpu"])
     assert len(records) == count
     for record in records:

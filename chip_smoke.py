@@ -162,6 +162,16 @@
    load, the committed ``assets/*.npz`` unchanged); the RDB kernel's launches
    of ``perf_lab gen`` and of the program's CLIs (``FUSED_RDB_LAUNCH_LOG``)
    join ``fused_rdb_launches`` and the ``kernels`` line;
+17. after the autograd guard, before the Orbax phase, SwinIR-L
+   (``SRPipeline(arch="swinir_l")``, the benchmark's configuration and
+   seeded weights) serves the test image whole and the wide image in
+   528/8/8 tiles in bfloat16 and float32, each against the plain reference
+   (``benchmark/reference/swinir.py``) on the same geometry: float32 within
+   SWINIR_F32_BOUND, bf16 within the ``swinir_l.batch256`` cell's
+   ``out_err_ratio`` limit; 54 window-attention and 3 tail-kernel launches a
+   forward; the ``kernels`` line times the window-attention kernel at that
+   cell's shape in both dtypes against ``window_attn_plain`` and its byte
+   bound;
 16. after the autograd guard, the Orbax phase: builds the port's zstd
    decoder (``csrc/zstd_decode.cpp``, g++) and prints its build line; reads
    every checkpoint fixture of ``tests/data/jax_orbax`` (the JAX trainers'
@@ -233,7 +243,9 @@ from real_esrgan_tpu_torch.ops.mm_probe import (
 )
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
 from real_esrgan_tpu_torch.ops.tail_epilogue import bias_lrelu, bias_lrelu_plain
+from real_esrgan_tpu_torch.ops.window_attn import window_attn, window_attn_plain
 from real_esrgan_tpu_torch.parallel import mesh
+from real_esrgan_tpu_torch.parallel.tiling import pad_for_tiles, tile_grid
 from real_esrgan_tpu_torch.scripts import eval_pair, make_degraded_eval
 from real_esrgan_tpu_torch.serve import SRPipeline
 from real_esrgan_tpu_torch.tools import conv_exp, dp_check
@@ -289,7 +301,20 @@ K1_EXTRA_SHAPES = {(2, 67, 93, 64), (1, 5, 3, 64), (3, 17, 40, 64)}
 # 8-bit levels: bf16 rounding gives a max near 5 and a mean near 0.12; a tile
 # computed wrong gives far more
 SEAM_LIMIT = {"max": 16.0, "mean": 0.5}
-KERNEL_SOURCES = ("fused_rdb", "conv3x3", "mm_probe")
+KERNEL_SOURCES = ("fused_rdb", "conv3x3", "mm_probe", "window_attn")
+# SwinIR-L (models/swinir.py) at the benchmark's configuration and seeded
+# weights: 54 window-attention launches and 3 of the tail kernel a forward;
+# the serve path against the plain reference, float32 within SWINIR_F32_BOUND
+# (TF32 off; sums in another order), bf16 by the cell's GapRatio limit
+SWINIR_CONFIG = os.path.join(ROOT, "benchmark", "configs", "swinir_l_realsr_x4.json")
+SWINIR_LIMITS = os.path.join(ROOT, "benchmark", "limits", "swinir_l.batch256.json")
+SWINIR_SEED = 2 ** 31 + 22
+WINDOW_ATTN_PER_FORWARD = 54
+WINDOW_ATTN_LAUNCHES = {"bf16": 0, "f32": 0}
+SWINIR_F32_BOUND = 1e-3
+# the window-attention kernel's timed shape: the SwinIR cell's 16 x 256^2
+# tokens of 3 x 240 channels
+WINDOW_ATTN_SHAPE = (16, 256, 256, 720)
 CONV_SHAPE = (8, 256, 256, 64, 192, 32)  # the tool's default: B, H, W, Cin, Cout, tile
 # K2's shapes beside the tool's default ((B, H, W, Cin), Cout, tile): Cin = 32
 # (zeros past Cin), W = 48 and Cout = 64 (the 64-wide kernel)
@@ -3106,6 +3131,127 @@ def tail_record(dtype: torch.dtype, shape: tuple, launches: int) -> dict:
             "shuffle": True, "device_tb_per_s": moved / device_ms / 1e9}
 
 
+def swinir_reference(params, cfg: dict, image: np.ndarray, pipe: SRPipeline,
+                     dtype: torch.dtype) -> np.ndarray:
+    """The plain SwinIR reference (``benchmark/reference/swinir.py``) on the
+    pipeline's geometry: the image padded to the bucket and cropped back, or
+    cut into the pipeline's tiles, each run alone, their cores stitched."""
+    from benchmark.reference import swinir as reference
+
+    h, w, _ = image.shape
+    if max(h, w) <= pipe.tile_threshold:
+        hb, wb = -(-h // pipe.bucket) * pipe.bucket, -(-w // pipe.bucket) * pipe.bucket
+        padded = np.pad(image, ((0, hb - h), (0, wb - w), (0, 0)), mode="reflect")
+        x = torch.from_numpy(np.ascontiguousarray(padded, np.float32))[None].cuda()
+        return reference.forward_in_blocks(params, x, cfg, 1, dtype=dtype)[0, :4 * h, :4 * w]\
+            .cpu().numpy()
+    tile, overlap = pipe.tile, pipe.tile_overlap
+    ny, nx, core = tile_grid(h, w, tile, overlap)
+    canvas = torch.from_numpy(pad_for_tiles(image, tile, overlap)).cuda()
+    out = np.zeros((ny * core * 4, nx * core * 4, 3), np.float32)
+    for i in range(ny):
+        for j in range(nx):
+            x = canvas[i * core:i * core + tile, j * core:j * core + tile][None]
+            sr = reference.forward_in_blocks(params, x, cfg, 1, dtype=dtype)[0].cpu().numpy()
+            out[i * core * 4:(i + 1) * core * 4, j * core * 4:(j + 1) * core * 4] = \
+                sr[overlap * 4:(overlap + core) * 4, overlap * 4:(overlap + core) * 4]
+    return out[:4 * h, :4 * w]
+
+
+def drive_swinir(tree: np.ndarray, wide: np.ndarray) -> None:
+    """SwinIR-L through ``SRPipeline(arch="swinir_l")`` on the benchmark's
+    seeded weights, in bf16 and float32: the test image whole and the wide
+    image in 528/8/8 tiles, each against the plain reference, with the
+    window-attention kernel's and the tail kernel's launches counted."""
+    from benchmark.harness import GapRatio
+    from benchmark.weights_swinir import swinir_params
+
+    t0 = time.perf_counter()
+    with open(SWINIR_CONFIG) as f:
+        cfg = json.load(f)
+    with open(SWINIR_LIMITS) as f:
+        limit = json.load(f)["limits"]["out_err_ratio"]
+    params = swinir_params(cfg, SWINIR_SEED, "cuda")
+    images = {"tree": tree, "wide_tiled": wide}
+    refs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        pipe = SRPipeline(arch="swinir_l", bfloat16=dtype == torch.bfloat16, device="cuda")
+        pipe.model.load_state_dict(params)
+        for name, image in images.items():
+            if name not in refs:
+                refs[name] = {d: swinir_reference(params, cfg, image, pipe, d)
+                              for d in (torch.float32, torch.bfloat16)}
+            h, w, _ = image.shape
+            ny, nx, _ = tile_grid(h, w, pipe.tile, pipe.tile_overlap)
+            forwards = 1 if max(h, w) <= pipe.tile_threshold else -(-ny * nx // pipe.tile_batch)
+            window_attn.launches = bias_lrelu.launches = 0
+            out = pipe.upscale(image)
+            launched, tail = window_attn.launches, bias_lrelu.launches
+            WINDOW_ATTN_LAUNCHES[DTYPE_NAME[dtype]] += launched
+            ref, ref16 = refs[name][torch.float32], refs[name][torch.bfloat16]
+            gap = GapRatio()
+            gap.add(*(torch.from_numpy(a)[None] for a in (out, ref, ref16)))
+            record = {"dtype": DTYPE_NAME[dtype], "name": name, "in": [h, w],
+                      "out": list(out.shape), "window_attn_launches": launched,
+                      "bias_lrelu_launches": tail,
+                      "max_abs_vs_reference": float(np.abs(out - ref).max()),
+                      "reference_bf16_max_abs": float(np.abs(ref16 - ref).max()),
+                      "out_err_ratio": gap.value(), "limit": limit}
+            emit(swinir_serve=record)
+            check(out.shape == (4 * h, 4 * w, 3), f"swinir {name} output shape {out.shape}")
+            check(launched == WINDOW_ATTN_PER_FORWARD * forwards and
+                  tail == TAIL_PER_FORWARD * forwards,
+                  f"swinir {name}: {launched} window_attn and {tail} tail launches for "
+                  f"{forwards} forwards")
+            if dtype == torch.float32:
+                check(record["max_abs_vs_reference"] <= SWINIR_F32_BOUND,
+                      f"swinir f32 {name} differs from the reference by "
+                      f"{record['max_abs_vs_reference']}")
+            else:
+                check(record["out_err_ratio"] <= limit,
+                      f"swinir bf16 {name}: out_err_ratio {record['out_err_ratio']} > {limit}")
+        del pipe
+        torch.cuda.empty_cache()
+    emit(swinir_seconds=round(time.perf_counter() - t0, 1))
+
+
+def window_attn_record(dtype: torch.dtype, launches: int) -> dict:
+    """The window-attention kernel at the SwinIR cell's shape, in a shifted
+    block: its time and ``window_attn_plain``'s in turns, both again inside
+    a CUDA graph of 10 launches, and its bound, the larger of q, k and v read
+    once and the output written once over HBM's rate and its two products
+    over the bf16 tensor-core rate (float32: the CUDA cores'); no call of the
+    port's computes the same (``scaled_dot_product_attention`` is no kernel
+    of the port)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    b, h, w, c3 = WINDOW_ATTN_SHAPE
+    qkv = (torch.randn(WINDOW_ATTN_SHAPE, generator=gen, device="cuda") * 0.6).to(dtype)
+    table = torch.randn(225, 8, generator=gen, device="cuda")
+    kernel = (lambda: window_attn(qkv, table, 8, 4))
+    plain = (lambda: window_attn_plain(qkv, table, 8, 4))
+    out, ref = kernel().float(), plain().float()
+    err = float((out - ref).abs().max())
+    limit = 2e-5 if dtype == torch.float32 else 2 ** -8 * (1 + float(ref.abs().max()))
+    check(err <= limit, f"window_attn {DTYPE_NAME[dtype]} differs from window_attn_plain by {err}")
+    del out, ref
+    ms, plain_ms = in_turns(kernel, plain, 10)
+    device_ms, plain_device_ms = graph_ms(kernel, 10), graph_ms(plain, 3)
+    tokens = b * h * w
+    flops = 2 * 2 * 64 * (c3 // 3) * tokens
+    moved = tokens * 4 * (c3 // 3) * qkv.element_size()
+    # float32 runs its products on the CUDA cores
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_CUDA_CORE_FLOPS
+    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
+    return {"name": f"window_attn[{DTYPE_NAME[dtype]}]", "route": "cuda",
+            "source": "real_esrgan_tpu_torch/csrc/window_attn.cu", "replaces": None,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes
+            else "bytes", "library_ms": None, "device_ms": device_ms,
+            "plain_device_ms": plain_device_ms, "shape": list(WINDOW_ATTN_SHAPE), "shift": 4,
+            "device_tb_per_s": moved / device_ms / 1e9,
+            "bound_share": max(t_ops, t_bytes) / device_ms}
+
+
 def conv_record(launches: int) -> dict:
     """conv3x3 mode ``full`` at the tool's default shape: in a host loop of
     20 launches (in turns with the plain version), and inside a CUDA graph
@@ -3227,6 +3373,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         check_trunk_activations(state_dict, trunk_inputs.pop(dtype), dtype)
     check_autograd_guard(state_dict)
+    drive_swinir(tree, wide)
     orbax_launches = drive_orbax(tree, gpu)
     tree_sr = read_png(TREE_SR)
     drive_degrade(tree_sr)
@@ -3263,6 +3410,8 @@ def main() -> int:
     kernels += [tail_record(d, shape, sum(TAIL_LAUNCHES[DTYPE_NAME[d]].values()))
                 for d, shape in ((torch.bfloat16, (16, 256, 512, 512)),
                                  (torch.float32, (1, 256, 512, 1024)))]
+    kernels += [window_attn_record(d, WINDOW_ATTN_LAUNCHES[DTYPE_NAME[d]])
+                for d in (torch.bfloat16, torch.float32)]
     kernels.append(conv_record(tool_launches["conv3x3"]))
     kernels += [mm_record(kind, m, k, n, tool_launches[kind])
                 for kind in ("mm_grid", "mm_resident") for m, k, n in conv_exp.GATE_SHAPES]

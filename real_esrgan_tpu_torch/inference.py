@@ -3,7 +3,10 @@
     python -m real_esrgan_tpu_torch.inference --inputs_path tests/data/tree_lr.png \\
         --output_path sr.png --weights_path assets/inenv10_esrnet_ema.npz
 
-Same flags as the JAX CLI.  Runs on CUDA; ``--cpu`` runs on the CPU instead,
+Same flags as the JAX CLI, and ``--arch`` (``rrdbnet``, the default, or
+``swinir_l``: SwinIR-L for real-world x4, whose release weights
+``003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN.pth`` load as they are).
+Runs on CUDA; ``--cpu`` runs on the CPU instead,
 and without ``--cpu`` a machine with no CUDA device is an error.  With
 ``--tile`` each tile batch is spread over every visible GPU, one generator
 replica a GPU, as the JAX CLI shards it over its mesh.
@@ -19,7 +22,7 @@ import torch
 
 from real_esrgan_tpu_torch.parallel.mesh import local_devices
 from real_esrgan_tpu_torch.parallel.tiling import tiled_upscale
-from real_esrgan_tpu_torch.serve import generator_replicas, no_grad_forward
+from real_esrgan_tpu_torch.serve import ARCHS, generator_replicas, no_grad_forward
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
 from real_esrgan_tpu_torch.utils.imgio import (
     array_to_image, image_to_array, load_image_rgb, save_image_rgb,
@@ -38,7 +41,8 @@ def main(args) -> str:
         print(f"Loaded `{args.weights_path}` weights.")
     else:
         print("WARNING: no weights file found — using random initialization.")
-    models = generator_replicas(devices, state_dict, upscale_factor=args.upscale_factor,
+    models = generator_replicas(devices, state_dict, arch=args.arch,
+                                upscale_factor=args.upscale_factor,
                                 dtype=torch.bfloat16 if args.bfloat16 else torch.float32)
 
     lr_image = load_image_rgb(args.inputs_path)
@@ -72,6 +76,8 @@ def build_parser() -> argparse.ArgumentParser:
                         default="./results/pretrained_models/RealESRGAN_x4-DFO2K.pth.tar",
                         help="Generator weights (.pth.tar or .npz snapshot).")
     parser.add_argument("--upscale_factor", type=int, default=4)
+    parser.add_argument("--arch", choices=ARCHS, default="rrdbnet",
+                        help="The network: Real-ESRGAN's RRDBNet, or SwinIR-L (x4).")
     parser.add_argument("--bfloat16", action="store_true",
                         help="Run the network in bfloat16.")
     parser.add_argument("--tile", type=int, default=0,

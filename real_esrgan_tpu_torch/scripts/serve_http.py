@@ -5,6 +5,8 @@ shapes for small inputs, overlap tiles over every local GPU for large ones).
     python -m real_esrgan_tpu_torch.scripts.serve_http \\
         --weights assets/inenv10_esrnet_ema.npz --port 8080        # on the GPUs
     python -m real_esrgan_tpu_torch.scripts.serve_http --cpu --no-bfloat16 ...
+    python -m real_esrgan_tpu_torch.scripts.serve_http --arch swinir_l \\
+        --weights 003_realSR_BSRGAN_DFOWMFC_s64w8_SwinIR-L_x4_GAN.pth       # SwinIR-L
     curl -s -X POST --data-binary @lr.png localhost:8080/upscale > sr.png
     curl -s localhost:8080/healthz
 
@@ -44,17 +46,18 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from real_esrgan_tpu_torch.serve import SRPipeline
+from real_esrgan_tpu_torch.serve import ARCHS, SRPipeline
 from real_esrgan_tpu_torch.utils import profiling
 from real_esrgan_tpu_torch.utils.imgio import decode_png, encode_png
 
 
 def build_app(weights: str = "", upscale_factor: int = 4, num_rrdb: int = 23,
-              bfloat16: bool = True, warmup_size: int = 0, device=None):
-    """Returns a BaseHTTPRequestHandler class bound to one loaded pipeline,
-    on ``device`` (``"cpu"``), or by default on every local GPU."""
+              bfloat16: bool = True, warmup_size: int = 0, device=None, arch: str = "rrdbnet"):
+    """Returns a BaseHTTPRequestHandler class bound to one loaded pipeline of
+    the network ``arch``, on ``device`` (``"cpu"``), or by default on every
+    local GPU."""
     pipeline = SRPipeline(weights_path=weights, upscale_factor=upscale_factor,
-                          num_rrdb=num_rrdb, bfloat16=bfloat16, device=device)
+                          num_rrdb=num_rrdb, bfloat16=bfloat16, device=device, arch=arch)
     lock = threading.Lock()
     served = [0]
     app = object()  # owns this app's records in the process's ring of requests
@@ -189,6 +192,8 @@ def main(argv=None) -> None:
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--upscale-factor", type=int, default=4)
     p.add_argument("--num-rrdb", type=int, default=23)
+    p.add_argument("--arch", choices=ARCHS, default="rrdbnet",
+                   help="the network: Real-ESRGAN's RRDBNet, or SwinIR-L (x4)")
     p.add_argument("--no-bfloat16", action="store_true")
     p.add_argument("--warmup-size", type=int, default=256,
                    help="run one forward of this input size at start-up (0 = off)")
@@ -196,9 +201,9 @@ def main(argv=None) -> None:
     a = p.parse_args(argv)
 
     handler = build_app(a.weights, a.upscale_factor, a.num_rrdb, not a.no_bfloat16,
-                        a.warmup_size, device="cpu" if a.cpu else None)
+                        a.warmup_size, device="cpu" if a.cpu else None, arch=a.arch)
     server = ThreadingHTTPServer((a.host, a.port), handler)
-    print(f"serving x{a.upscale_factor} SR on http://{a.host}:{a.port} on "
+    print(f"serving x{a.upscale_factor} SR ({a.arch}) on http://{a.host}:{a.port} on "
           f"{handler.pipeline_ref.device} (weights: {a.weights or 'random init'})", flush=True)
     server.serve_forever()
 

@@ -7,7 +7,10 @@ real_esrgan_tpu/serve.py::SRPipeline.
   (parallel/tiling.py), each tile batch spread over the pipeline's devices,
   one generator replica a device, as the JAX pipeline shards it over its
   mesh;
-* weights come from ``.npz`` snapshots or reference ``.pth.tar`` files.
+* weights come from ``.npz`` snapshots or reference ``.pth.tar`` files;
+* ``arch`` picks the network: ``rrdbnet`` (Real-ESRGAN's ``Generator``) or
+  ``swinir_l`` (SwinIR-L for real-world x4, ``models/swinir.py``), each
+  served through the same code.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 from real_esrgan_tpu_torch.models import Generator
+from real_esrgan_tpu_torch.models.swinir import SwinIR
 from real_esrgan_tpu_torch.parallel.mesh import local_devices
 from real_esrgan_tpu_torch.parallel.tiling import tiled_upscale
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
@@ -42,12 +46,27 @@ def no_grad_forward(model: torch.nn.Module):
     return forward
 
 
-def generator_replicas(devices, state_dict=None, **generator_kwargs) -> List[Generator]:
-    """One evaluation-mode ``Generator(**generator_kwargs)`` a device, each
-    with ``state_dict`` loaded where one is given."""
+ARCHS = ("rrdbnet", "swinir_l")
+
+
+def build_generator(arch: str = "rrdbnet", num_rrdb: int = 23, **kwargs) -> torch.nn.Module:
+    """The network ``arch`` names (``ARCHS``): ``rrdbnet``, a ``Generator`` of
+    ``num_rrdb`` RRDBs, or ``swinir_l``, SwinIR-L at its published widths
+    (x4 only).  ``kwargs`` go to the network's constructor."""
+    if arch == "rrdbnet":
+        return Generator(num_rrdb=num_rrdb, **kwargs)
+    if arch == "swinir_l":
+        return SwinIR(**kwargs)
+    raise ValueError(f"unknown arch {arch!r}; one of {ARCHS}")
+
+
+def generator_replicas(devices, state_dict=None, arch: str = "rrdbnet",
+                       **generator_kwargs) -> List[torch.nn.Module]:
+    """One evaluation-mode ``build_generator(arch, **generator_kwargs)`` a
+    device, each with ``state_dict`` loaded where one is given."""
     models = []
     for d in devices:
-        model = Generator(device=d, **generator_kwargs).eval()
+        model = build_generator(arch, device=d, **generator_kwargs).eval()
         if state_dict is not None:
             model.load_state_dict(state_dict)
         models.append(model)
@@ -62,13 +81,14 @@ class SRPipeline:
     ``device="cpu"`` to run on the CPU).  Tiled requests spread each tile
     batch over ``devices``, one replica a device; every other request runs
     on the first, ``self.device``.  ``bfloat16`` picks the compute dtype of
-    the generator (default True, as in the JAX pipeline)."""
+    the generator (default True, as in the JAX pipeline); ``arch`` the network
+    (``ARCHS``; ``num_rrdb`` is RRDBNet's alone)."""
 
     def __init__(self, weights_path: str = "", upscale_factor: int = 4,
                  num_rrdb: int = 23, bfloat16: bool = True,
                  bucket: int = 32, tile_threshold: int = 512,
                  tile: int = 528, tile_overlap: int = 8, tile_batch: int = 8,
-                 device=None, devices=None):
+                 device=None, devices=None, arch: str = "rrdbnet"):
         if device is not None:
             devices = [device]
         self.devices = [torch.device(d) for d in
@@ -83,7 +103,7 @@ class SRPipeline:
 
         self.models = generator_replicas(
             self.devices, load_generator_params(weights_path) if weights_path else None,
-            upscale_factor=upscale_factor, num_rrdb=num_rrdb,
+            arch=arch, upscale_factor=upscale_factor, num_rrdb=num_rrdb,
             dtype=torch.bfloat16 if bfloat16 else torch.float32)
         self.model = self.models[0]
 

@@ -346,12 +346,20 @@ def merge_matching(params: Dict[str, Any], loaded: Dict[str, Any]) -> Dict[str, 
     return out
 
 
+# buffers of SwinIR's state dict that the port computes rather than loads
+SWINIR_BUFFERS = (".relative_position_index", ".attn_mask")
+
+
 def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch.Tensor]:
     """Generator weights as the port's OIHW state_dict, from
 
     * a compact ``.npz`` snapshot (``scripts/snapshot_weights.py``),
     * a reference ``.pth.tar``: ``ema_state_dict`` when present and
-      preferred, else ``state_dict``, with the ``model.`` prefix stripped, or
+      preferred, else ``state_dict``, with the ``model.`` prefix stripped,
+    * a SwinIR release ``.pth`` (BasicSR's layout): ``params_ema`` when
+      present and preferred, else ``params``, without the
+      ``relative_position_index`` and ``attn_mask`` buffers, which the port
+      computes, or
     * a checkpoint directory of the port's trainer or the JAX trainer's
       Orbax directory: ``ema_params`` when preferred and saved, else
       ``params``.
@@ -366,12 +374,12 @@ def load_generator_params(path: str, prefer_ema: bool = True) -> Dict[str, torch
     if path.endswith((".pth.tar", ".pth", ".tar")):
         with torch.serialization.safe_globals(_numpy_globals()):
             ckpt = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(ckpt, dict) and ("state_dict" in ckpt or "ema_state_dict" in ckpt):
-            key = "ema_state_dict" if (prefer_ema and "ema_state_dict" in ckpt) \
-                else "state_dict"
-            ckpt = ckpt[key]
+        for ema, plain in (("ema_state_dict", "state_dict"), ("params_ema", "params")):
+            if isinstance(ckpt, dict) and (ema in ckpt or plain in ckpt):
+                ckpt = ckpt[ema if (prefer_ema and ema in ckpt) else plain]
+                break
         return {k: torch.as_tensor(v, dtype=torch.float32)
-                for k, v in strip_prefix(ckpt).items()}
+                for k, v in strip_prefix(ckpt).items() if not k.endswith(SWINIR_BUFFERS)}
     if os.path.isdir(path):
         tree = load_checkpoint(path)
         ema = tree.get("ema_params")

@@ -168,10 +168,12 @@
    528/8/8 tiles in bfloat16 and float32, each against the plain reference
    (``benchmark/reference/swinir.py``) on the same geometry: float32 within
    SWINIR_F32_BOUND, bf16 within the ``swinir_l.batch256`` cell's
-   ``out_err_ratio`` limit; 54 window-attention and 3 tail-kernel launches a
-   forward; the ``kernels`` line times the window-attention kernel at that
-   cell's shape in both dtypes against ``window_attn_plain`` and its byte
-   bound;
+   ``out_err_ratio`` limit; 54 window-attention, 110 LayerNorm and 3
+   tail-kernel launches a forward; the ``kernels`` line times the
+   window-attention kernel and the LayerNorm kernel at that cell's shape in
+   both dtypes against ``window_attn_plain`` and ``layer_norm_plain`` and
+   their byte bounds, the LayerNorm also against ``F.layer_norm`` as its
+   ``library_ms``;
 16. after the autograd guard, the Orbax phase: builds the port's zstd
    decoder (``csrc/zstd_decode.cpp``, g++) and prints its build line; reads
    every checkpoint fixture of ``tests/data/jax_orbax`` (the JAX trainers'
@@ -241,6 +243,7 @@ from real_esrgan_tpu_torch.ops.mm_probe import (
     RESIDENT_MAX_K_BOXES, RESIDENT_WIDTHS, built_mm_grid_plan, built_mm_resident_plan, mm_grid,
     mm_grid_plain, mm_grid_plan, mm_resident, mm_resident_plain, mm_resident_plan,
 )
+from real_esrgan_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from real_esrgan_tpu_torch.ops.resize import matlab_resize
 from real_esrgan_tpu_torch.ops.tail_epilogue import bias_lrelu, bias_lrelu_plain
 from real_esrgan_tpu_torch.ops.window_attn import window_attn, window_attn_plain
@@ -301,9 +304,10 @@ K1_EXTRA_SHAPES = {(2, 67, 93, 64), (1, 5, 3, 64), (3, 17, 40, 64)}
 # 8-bit levels: bf16 rounding gives a max near 5 and a mean near 0.12; a tile
 # computed wrong gives far more
 SEAM_LIMIT = {"max": 16.0, "mean": 0.5}
-KERNEL_SOURCES = ("fused_rdb", "conv3x3", "mm_probe", "window_attn")
+KERNEL_SOURCES = ("fused_rdb", "conv3x3", "mm_probe", "window_attn", "layer_norm")
 # SwinIR-L (models/swinir.py) at the benchmark's configuration and seeded
-# weights: 54 window-attention launches and 3 of the tail kernel a forward;
+# weights: 54 window-attention launches, 110 LayerNorm launches and 3 of the
+# tail kernel a forward;
 # the serve path against the plain reference, float32 within SWINIR_F32_BOUND
 # (TF32 off; sums in another order), bf16 by the cell's GapRatio limit
 SWINIR_CONFIG = os.path.join(ROOT, "benchmark", "configs", "swinir_l_realsr_x4.json")
@@ -311,10 +315,13 @@ SWINIR_LIMITS = os.path.join(ROOT, "benchmark", "limits", "swinir_l.batch256.jso
 SWINIR_SEED = 2 ** 31 + 22
 WINDOW_ATTN_PER_FORWARD = 54
 WINDOW_ATTN_LAUNCHES = {"bf16": 0, "f32": 0}
+LAYER_NORM_PER_FORWARD = 110  # norm1 and norm2 of 54 Swin blocks, patch_embed.norm, norm
+LAYER_NORM_LAUNCHES = {"bf16": 0, "f32": 0}
 SWINIR_F32_BOUND = 1e-3
 # the window-attention kernel's timed shape: the SwinIR cell's 16 x 256^2
 # tokens of 3 x 240 channels
 WINDOW_ATTN_SHAPE = (16, 256, 256, 720)
+LAYER_NORM_SHAPE = (16, 256, 256, 240)  # the SwinIR cell's tokens, SwinIR-L's width
 CONV_SHAPE = (8, 256, 256, 64, 192, 32)  # the tool's default: B, H, W, Cin, Cout, tile
 # K2's shapes beside the tool's default ((B, H, W, Cin), Cout, tile): Cin = 32
 # (zeros past Cin), W = 48 and Cout = 64 (the 64-wide kernel)
@@ -3162,7 +3169,7 @@ def drive_swinir(tree: np.ndarray, wide: np.ndarray) -> None:
     """SwinIR-L through ``SRPipeline(arch="swinir_l")`` on the benchmark's
     seeded weights, in bf16 and float32: the test image whole and the wide
     image in 528/8/8 tiles, each against the plain reference, with the
-    window-attention kernel's and the tail kernel's launches counted."""
+    window-attention, LayerNorm and tail kernels' launches counted."""
     from benchmark.harness import GapRatio
     from benchmark.weights_swinir import swinir_params
 
@@ -3184,25 +3191,28 @@ def drive_swinir(tree: np.ndarray, wide: np.ndarray) -> None:
             h, w, _ = image.shape
             ny, nx, _ = tile_grid(h, w, pipe.tile, pipe.tile_overlap)
             forwards = 1 if max(h, w) <= pipe.tile_threshold else -(-ny * nx // pipe.tile_batch)
-            window_attn.launches = bias_lrelu.launches = 0
+            window_attn.launches = bias_lrelu.launches = layer_norm.launches = 0
             out = pipe.upscale(image)
             launched, tail = window_attn.launches, bias_lrelu.launches
+            norms = layer_norm.launches
             WINDOW_ATTN_LAUNCHES[DTYPE_NAME[dtype]] += launched
+            LAYER_NORM_LAUNCHES[DTYPE_NAME[dtype]] += norms
             ref, ref16 = refs[name][torch.float32], refs[name][torch.bfloat16]
             gap = GapRatio()
             gap.add(*(torch.from_numpy(a)[None] for a in (out, ref, ref16)))
             record = {"dtype": DTYPE_NAME[dtype], "name": name, "in": [h, w],
                       "out": list(out.shape), "window_attn_launches": launched,
-                      "bias_lrelu_launches": tail,
+                      "layer_norm_launches": norms, "bias_lrelu_launches": tail,
                       "max_abs_vs_reference": float(np.abs(out - ref).max()),
                       "reference_bf16_max_abs": float(np.abs(ref16 - ref).max()),
                       "out_err_ratio": gap.value(), "limit": limit}
             emit(swinir_serve=record)
             check(out.shape == (4 * h, 4 * w, 3), f"swinir {name} output shape {out.shape}")
             check(launched == WINDOW_ATTN_PER_FORWARD * forwards and
+                  norms == LAYER_NORM_PER_FORWARD * forwards and
                   tail == TAIL_PER_FORWARD * forwards,
-                  f"swinir {name}: {launched} window_attn and {tail} tail launches for "
-                  f"{forwards} forwards")
+                  f"swinir {name}: {launched} window_attn, {norms} layer_norm and {tail} tail "
+                  f"launches for {forwards} forwards")
             if dtype == torch.float32:
                 check(record["max_abs_vs_reference"] <= SWINIR_F32_BOUND,
                       f"swinir f32 {name} differs from the reference by "
@@ -3250,6 +3260,48 @@ def window_attn_record(dtype: torch.dtype, launches: int) -> dict:
             "plain_device_ms": plain_device_ms, "shape": list(WINDOW_ATTN_SHAPE), "shift": 4,
             "device_tb_per_s": moved / device_ms / 1e9,
             "bound_share": max(t_ops, t_bytes) / device_ms}
+
+
+def layer_norm_record(dtype: torch.dtype, launches: int) -> dict:
+    """The LayerNorm kernel at the SwinIR cell's shape: its time and
+    ``layer_norm_plain``'s in turns, both again inside a CUDA graph of 10
+    launches, ``F.layer_norm`` called alone as ``library_ms`` (a yardstick:
+    the port calls it on the card only under autograd), and its bound, the
+    input read once and the output written once over HBM's rate.  float32
+    is held within 1e-5 of the plain version, bf16 within one bf16 ulp of
+    each output beyond that (``max_ulp`` is over values of 1/16 or more)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    c = LAYER_NORM_SHAPE[-1]
+    x = (torch.randn(LAYER_NORM_SHAPE, generator=gen, device="cuda") * 1.5).to(dtype)
+    weight = (1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    bias = (0.1 * torch.randn(c, generator=gen, device="cuda")).to(dtype)
+    kernel = (lambda: layer_norm(x, weight, bias, 1e-5))
+    plain = (lambda: layer_norm_plain(x, weight, bias, 1e-5))
+    library = (lambda: torch.nn.functional.layer_norm(x, (c,), weight, bias, 1e-5))
+    out, ref = kernel().float(), plain().float()
+    err = (out - ref).abs()
+    max_err, ulps, beyond, ulp = float(err.max()), None, 0.0, None
+    if dtype == torch.bfloat16:  # one ulp of a bf16 value in [2^(e-1), 2^e) is 2^(e-8)
+        ulp = torch.ldexp(torch.ones_like(err), torch.frexp(ref).exponent - 8)
+        ulps = float((err / ulp)[ref.abs() >= 2 ** -4].max())
+        beyond = float((err - ulp).max())
+    check(max_err <= 1e-5 if ulps is None else beyond <= 1e-5,
+          f"layer_norm {DTYPE_NAME[dtype]} differs from layer_norm_plain by {max_err} "
+          f"({beyond} beyond one ulp)")
+    del out, ref, err, ulp
+    torch.cuda.empty_cache()
+    ms, plain_ms = in_turns(kernel, plain, 20)
+    device_ms, plain_device_ms = graph_ms(kernel, 10), graph_ms(plain, 10)
+    moved = 2 * x.numel() * x.element_size() + 2 * c * x.element_size()
+    return {"name": f"layer_norm[{DTYPE_NAME[dtype]}]", "route": "cuda",
+            "source": "real_esrgan_tpu_torch/csrc/layer_norm.cu", "replaces": None,
+            "launches": launches, "max_abs_err": max_err, "max_ulp": ulps,
+            "beyond_one_ulp": beyond, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": moved / PEAK_BYTES * 1e3, "bound_by": "bytes",
+            "library_ms": time_ms(library, 20), "library_device_ms": graph_ms(library, 10),
+            "device_ms": device_ms, "plain_device_ms": plain_device_ms,
+            "shape": list(LAYER_NORM_SHAPE), "device_tb_per_s": moved / device_ms / 1e9,
+            "bound_share": moved / PEAK_BYTES * 1e3 / device_ms}
 
 
 def conv_record(launches: int) -> dict:
@@ -3411,6 +3463,8 @@ def main() -> int:
                 for d, shape in ((torch.bfloat16, (16, 256, 512, 512)),
                                  (torch.float32, (1, 256, 512, 1024)))]
     kernels += [window_attn_record(d, WINDOW_ATTN_LAUNCHES[DTYPE_NAME[d]])
+                for d in (torch.bfloat16, torch.float32)]
+    kernels += [layer_norm_record(d, LAYER_NORM_LAUNCHES[DTYPE_NAME[d]])
                 for d in (torch.bfloat16, torch.float32)]
     kernels.append(conv_record(tool_launches["conv3x3"]))
     kernels += [mm_record(kind, m, k, n, tool_launches[kind])

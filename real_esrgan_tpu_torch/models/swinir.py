@@ -24,8 +24,11 @@ compute type; LayerNorm's statistics and the softmax are taken in float32,
 GELU is the exact (erf) form.
 
 Window attention (``attn.core``, a submodule around the call alone) runs
-the hand-written kernel ``ops/window_attn.py::window_attn`` on a CUDA device
-where autograd records nothing, and its plain version otherwise.  The tail
+the hand-written kernel ``ops/window_attn.py::window_attn``, and every
+LayerNorm (``norm1`` and ``norm2`` of each Swin block, ``patch_embed.norm``,
+``norm``) the hand-written kernel ``ops/layer_norm.py::layer_norm``, on a
+CUDA device where autograd records nothing: 54 and 110 launches a SwinIR-L
+forward.  Otherwise both run their plain versions.  The tail
 after ``conv_before_upsample`` is RRDBNet's: both nearest x2 upconvs are
 folded into low-resolution convs (``rrdbnet._subpixel_upconv``), and their
 and ``conv_hr``'s bias, LeakyReLU(0.2) and shuffle are one pass of the tail
@@ -45,6 +48,7 @@ from real_esrgan_tpu_torch.models.rrdbnet import (
     Conv3x3, _fused_epilogue, _subpixel_upconv, torch_conv_bias_init, torch_conv_kernel_init,
 )
 from real_esrgan_tpu_torch.ops.fused_rdb import lrelu
+from real_esrgan_tpu_torch.ops.layer_norm import layer_norm, layer_norm_plain
 from real_esrgan_tpu_torch.ops.tail_epilogue import bias_lrelu
 from real_esrgan_tpu_torch.ops.window_attn import WINDOW, window_attn, window_attn_plain
 
@@ -70,7 +74,11 @@ class Linear(nn.Module):
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last dim, its statistics in float32 (as PyTorch's
-    kernels take them for a bfloat16 input), its output in the input's dtype."""
+    kernels take them for a bfloat16 input), its output in the input's dtype,
+    the weight and bias rounded to it.  On a CUDA tensor where autograd
+    records nothing it runs the hand-written kernel
+    ``ops/layer_norm.py::layer_norm`` (it has no backward), else
+    ``layer_norm_plain`` (``F.layer_norm``)."""
 
     def __init__(self, dim: int, device=None):
         super().__init__()
@@ -78,8 +86,12 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[-1:], self.weight.to(x.dtype), self.bias.to(x.dtype),
-                            LN_EPS)
+        weight, bias = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        records = torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                               or bias.requires_grad)
+        if x.is_cuda and not records:
+            return layer_norm(x.contiguous(), weight, bias, LN_EPS)
+        return layer_norm_plain(x, weight, bias, LN_EPS)
 
 
 class Conv(nn.Module):

@@ -39,7 +39,9 @@ def test_port_and_chip_smoke_import_no_jax():
     assert result["forbidden"] == []
     for module in ("ops.fused_rdb", "ops._build", "models.rrdbnet", "models.convert",
                    "train.checkpoint", "utils.imgio", "parallel.tiling", "serve", "inference",
-                   "ops.resize", "ops.conv3x3", "ops.mm_probe", "ops.tail_epilogue", "utils.meters", "metrics.niqe",
+                   "ops.resize", "ops.conv3x3", "ops.mm_probe", "ops.tail_epilogue",
+                   "ops.layer_norm", "ops.window_attn", "models.swinir", "utils.meters",
+                   "metrics.niqe",
                    "test", "scripts.eval_pair", "tools.conv_exp", "tools.rdb_probe",
                    "configuration", "ops.color", "ops.filter2d", "ops.usm", "ops.diffjpeg",
                    "ops.augment", "ops.blur_kernels", "ops.noise", "ops.degradation",

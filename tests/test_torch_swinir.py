@@ -20,8 +20,8 @@ Marked ``cuda`` (each skips without a CUDA device; this file imports no
 JAX, so on the card ``python -m pytest --noconftest -m cuda
 tests/test_torch_swinir.py``): the kernel against ``window_attn_plain`` at
 the cell's shape and at odd padded sizes in both dtypes, and 54 launches a
-SwinIR-L forward under ``no_grad`` (with the tail kernel's 3, as RRDBNet's)
-and none under autograd; a tiled upscale over replicas on two cards against
+SwinIR-L forward under ``no_grad`` (with the LayerNorm kernel's 110 and the
+tail kernel's 3, as RRDBNet's) and none under autograd; a tiled upscale over replicas on two cards against
 one card's (skips below two).  RRDBNet's tail keeps its bits:
 ``tests/test_torch_tail_epilogue.py``, whose kernel SwinIR shares unchanged.
 """
@@ -39,7 +39,7 @@ from benchmark.harness import GapRatio
 from benchmark.reference import swinir as reference
 from real_esrgan_tpu_torch import inference
 from real_esrgan_tpu_torch.models.swinir import SwinIR
-from real_esrgan_tpu_torch.ops import tail_epilogue, window_attn as wa
+from real_esrgan_tpu_torch.ops import layer_norm as ln, tail_epilogue, window_attn as wa
 from real_esrgan_tpu_torch.parallel.tiling import pad_for_tiles, tile_grid
 from real_esrgan_tpu_torch.serve import SRPipeline
 from real_esrgan_tpu_torch.scripts import serve_http
@@ -372,18 +372,23 @@ def test_the_kernel_off_a_16_byte_boundary_matches_plain(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_a_swinir_forward_launches_54_and_matches_autograd(cuda, dtype):
-    """SwinIR-L at its published widths: 54 kernel launches and 3 of the
-    tail kernel a forward under ``no_grad``, none under autograd (the plain
-    versions), and the two outputs agree as the kernels do with theirs."""
+    """SwinIR-L at its published widths: 54 window-attention launches, 110
+    LayerNorm launches and 3 of the tail kernel a forward under
+    ``no_grad``, none under autograd (the plain versions), and the two
+    outputs agree as the kernels do with theirs."""
     model = SwinIR(dtype=dtype, device=cuda).eval()
     x = inputs((1, 32, 40)).to(cuda)
-    wa.window_attn.launches = tail_epilogue.bias_lrelu.launches = 0
+    wa.window_attn.launches = tail_epilogue.bias_lrelu.launches = ln.layer_norm.launches = 0
+
+    def counts():
+        return wa.window_attn.launches, ln.layer_norm.launches, tail_epilogue.bias_lrelu.launches
+
     with torch.no_grad():
         fast = model(x)
-    assert (wa.window_attn.launches, tail_epilogue.bias_lrelu.launches) == (54, 3)
+    assert counts() == (54, 110, 3)
     x.requires_grad_(True)
     slow = model(x)
-    assert (wa.window_attn.launches, tail_epilogue.bias_lrelu.launches) == (54, 3)
+    assert counts() == (54, 110, 3)
     atol = 2e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(fast, slow.detach(), rtol=0, atol=atol)
 

@@ -18,7 +18,7 @@ computes where.
   slices of a pixel tile walked side by side, and the ring of windows
   played out with its mbarrier parities.
 * The whole model, built from the pieces above, against ``conv3x3_plain``
-  at the shapes the card tests and chip_smoke.py give the kernel (at the
+  at the shapes the card tests (test_torch_cuda.py) give the kernel (at the
   tool's default shape for the sub-tiles of four blocks, the first and last
   group's two slices).
 """
@@ -38,7 +38,7 @@ from real_esrgan_tpu_torch.ops.resize import true_f32
 
 torch.set_num_threads(2)
 
-# (B, H, W, Cin), Cout, tile: the card tests' and chip_smoke.py's shapes
+# (B, H, W, Cin), Cout, tile: the card tests' shapes (test_torch_cuda.py)
 SHAPES = [((8, 256, 256, 64), 192, 32), ((2, 16, 32, 32), 96, 8), ((1, 64, 48, 64), 64, 16),
           ((2, 64, 48, 32), 96, 16)]
 SHAPE_IDS = ["tool_default", "small_cin32", "w48", "cin32_w48"]

@@ -18,9 +18,13 @@ room and bf16's rounding the largest absolute steps.
 import math
 import os
 
+import numpy as np
 import pytest
 import torch
 
+from _torch_card import (  # noqa: F401  (cuda is a fixture)
+    RDB_TOLERANCE, ROOT, TREE_SR, WEIGHTS, cuda, trained_packed,
+)
 from real_esrgan_tpu_torch.models import Generator
 from real_esrgan_tpu_torch.models.rrdbnet import ResidualDenseBlock
 from real_esrgan_tpu_torch.ops.conv3x3 import (
@@ -35,19 +39,9 @@ from real_esrgan_tpu_torch.ops.mm_probe import (
     mm_resident_plain, mm_resident_plan,
 )
 from real_esrgan_tpu_torch.train.checkpoint import load_generator_params
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RDB_TOLERANCE = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 2e-2)}
+from real_esrgan_tpu_torch.utils.imgio import read_png
 
 pytestmark = pytest.mark.cuda
-
-
-@pytest.fixture()
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
 
 
 def _packed(dtype, device, seed=0):
@@ -77,11 +71,7 @@ def test_fused_rdb_kernel_matches_plain(cuda, shape, dtype, atol, rtol):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_fused_rdb_kernel_matches_plain_with_trained_weights(cuda, dtype):
-    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
-    convs = [(state[f"trunk.11.rdb2.conv{k}.weight"], state[f"trunk.11.rdb2.conv{k}.bias"])
-             for k in range(1, 6)]
-    packed = [t.to(cuda) for t in pack_rdb_weights([w for w, _ in convs], [b for _, b in convs],
-                                                   64, 32, dtype)]
+    packed = trained_packed(dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(4)
     x = (torch.randn((2, 67, 93, 64), generator=g, device=cuda) * 0.5).to(dtype)
     atol, rtol = RDB_TOLERANCE[dtype]
@@ -102,13 +92,6 @@ def test_fused_rdb_counts_each_launch(cuda, dtype):
     assert fused_rdb.launches == before + 2
 
 
-def _trained_packed(dtype, device, name="trunk.11.rdb2"):
-    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
-    convs = [(state[f"{name}.conv{k}.weight"], state[f"{name}.conv{k}.bias"]) for k in range(1, 6)]
-    return [t.to(device) for t in pack_rdb_weights([w for w, _ in convs], [b for _, b in convs],
-                                                   64, 32, dtype)]
-
-
 def _trunk_input(shape, device, seed, peak=60.0):
     """N(0, 1) scaled so that its largest magnitude is ``peak``: the trunk's
     activations reach |x| = 57 in the full-depth generator on the test image."""
@@ -119,7 +102,7 @@ def _trunk_input(shape, device, seed, peak=60.0):
 
 @pytest.mark.parametrize("name", ["trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3"])
 def test_fused_rdb_f32_matches_plain_at_trunk_magnitude(cuda, name):
-    packed = _trained_packed(torch.float32, cuda, name)
+    packed = trained_packed(torch.float32, cuda, name)
     x = _trunk_input((2, 67, 93, 64), cuda, seed=6)
     out = fused_rdb(x, packed, split_rdb_weights(packed))
     torch.testing.assert_close(out, rdb_plain(x, packed), atol=1e-4, rtol=0)
@@ -133,7 +116,7 @@ def test_fused_rdb_f32_matches_plain_at_trunk_magnitude(cuda, name):
                               "one_tile"])
 def test_fused_rdb_f32_ragged_against_its_tile(cuda, shape):
     assert rdb_plan(torch.float32)["tile"] == 8
-    packed = _trained_packed(torch.float32, cuda)
+    packed = trained_packed(torch.float32, cuda)
     x = _trunk_input(shape, cuda, seed=7)
     before = fused_rdb.launches
     out = fused_rdb(x, packed, split_rdb_weights(packed))
@@ -156,7 +139,7 @@ def test_fused_rdb_launches_at_its_plan(cuda, dtype):
                               "20x7", "31x130"])
 def test_fused_rdb_bf16_ragged_against_its_tile(cuda, shape):
     assert rdb_plan(torch.bfloat16)["tile"] == 16
-    packed = _trained_packed(torch.bfloat16, cuda)
+    packed = trained_packed(torch.bfloat16, cuda)
     g = torch.Generator(device=cuda).manual_seed(10)
     x = (torch.randn(shape, generator=g, device=cuda) * 0.5).to(torch.bfloat16)
     before = fused_rdb.launches
@@ -168,14 +151,14 @@ def test_fused_rdb_bf16_ragged_against_its_tile(cuda, shape):
 
 @pytest.mark.parametrize("name", ["trunk.0.rdb1", "trunk.11.rdb2", "trunk.22.rdb3"])
 def test_fused_rdb_bf16_matches_plain_at_trunk_magnitude(cuda, name):
-    packed = _trained_packed(torch.bfloat16, cuda, name)
+    packed = trained_packed(torch.bfloat16, cuda, name)
     x = _trunk_input((2, 67, 93, 64), cuda, seed=11).to(torch.bfloat16)
     out = fused_rdb(x, packed, boxes=box_rdb_weights(packed))
     torch.testing.assert_close(out.float(), rdb_plain(x, packed).float(), atol=2e-2, rtol=2e-2)
 
 
 def test_fused_rdb_bf16_counts_each_launch_with_its_boxes(cuda):
-    packed = _trained_packed(torch.bfloat16, cuda)
+    packed = trained_packed(torch.bfloat16, cuda)
     boxes = box_rdb_weights(packed)
     x = torch.zeros(1, 20, 24, 64, device=cuda, dtype=torch.bfloat16)
     before = fused_rdb.launches
@@ -184,21 +167,21 @@ def test_fused_rdb_bf16_counts_each_launch_with_its_boxes(cuda):
     torch.cuda.synchronize()
     assert fused_rdb.launches == before + 3
     with pytest.raises(ValueError, match="only the bfloat16"):
-        fused_rdb(x.float(), _trained_packed(torch.float32, cuda), boxes=boxes)
+        fused_rdb(x.float(), trained_packed(torch.float32, cuda), boxes=boxes)
     with pytest.raises(ValueError, match="box_rdb_weights"):
         fused_rdb(x, packed, boxes=boxes[:-8])
     assert fused_rdb.launches == before + 3
 
 
 def test_box_rdb_weights_on_the_card_equals_the_cpu(cuda):
-    packed = _trained_packed(torch.bfloat16, "cpu")
+    packed = trained_packed(torch.bfloat16, "cpu")
     assert torch.equal(box_rdb_weights([t.to(cuda) for t in packed]).cpu(), box_rdb_weights(packed))
 
 
 def test_fused_rdb_boxes_follow_load_state_dict(cuda):
     """The block's weight boxes are laid out from its current weights: after
     load_state_dict the bf16 kernel computes the new weights' RDB."""
-    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    state = load_generator_params(WEIGHTS)
     block = ResidualDenseBlock(64, 32, device=cuda).eval()
     x = _trunk_input((1, 30, 44, 64), cuda, seed=12).to(torch.bfloat16).permute(0, 3, 1, 2)
     seen = []
@@ -209,7 +192,7 @@ def test_fused_rdb_boxes_follow_load_state_dict(cuda):
             out = block(x)
             out_again = block(x)
             seen.append(block.box_weights(block.packed_weights(torch.bfloat16)))
-        packed = _trained_packed(torch.bfloat16, cuda, name)
+        packed = trained_packed(torch.bfloat16, cuda, name)
         assert torch.equal(seen[-1], box_rdb_weights(packed))
         ref = rdb_plain(x.permute(0, 2, 3, 1).contiguous(), packed)
         torch.testing.assert_close(out.permute(0, 2, 3, 1).float(), ref.float(), atol=2e-2,
@@ -223,7 +206,7 @@ def test_split_bf16_on_the_card_equals_the_cpu(cuda):
     t = torch.randn(1 << 16, generator=g) * torch.exp2(torch.randint(-30, 30, (1 << 16,), generator=g))
     for cpu_part, card_part in zip(split_bf16(t), split_bf16(t.to(cuda))):
         assert torch.equal(card_part.cpu(), cpu_part)
-    packed = _trained_packed(torch.float32, "cpu")
+    packed = trained_packed(torch.float32, "cpu")
     on_card = split_rdb_weights([w.to(cuda) for w in packed])
     for cpu_part, card_part in zip(split_rdb_weights(packed), on_card):
         assert all(torch.equal(c.cpu(), p) for p, c in zip(cpu_part, card_part))
@@ -232,7 +215,7 @@ def test_split_bf16_on_the_card_equals_the_cpu(cuda):
 def test_fused_rdb_split_follows_load_state_dict(cuda):
     """The block's split is cut from its current weights: after
     load_state_dict the f32 kernel computes the new weights' RDB."""
-    state = load_generator_params(os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz"))
+    state = load_generator_params(WEIGHTS)
     block = ResidualDenseBlock(64, 32, device=cuda).eval()
     x = _trunk_input((1, 30, 44, 64), cuda, seed=9).permute(0, 3, 1, 2)
     for name in ("trunk.0.rdb1", "trunk.22.rdb3"):
@@ -241,7 +224,7 @@ def test_fused_rdb_split_follows_load_state_dict(cuda):
         with torch.no_grad():
             out = block(x)
             out_again = block(x)
-        ref = rdb_plain(x.permute(0, 2, 3, 1).contiguous(), _trained_packed(torch.float32, cuda, name))
+        ref = rdb_plain(x.permute(0, 2, 3, 1).contiguous(), trained_packed(torch.float32, cuda, name))
         torch.testing.assert_close(out.permute(0, 2, 3, 1), ref, atol=1e-4, rtol=0)
         assert torch.equal(out, out_again)
 
@@ -278,7 +261,9 @@ def test_fused_rdb_raises_under_autograd(cuda):
     with pytest.raises(RuntimeError, match="no backward"):
         model(torch.rand(1, 16, 16, 3, device=cuda))
     with torch.no_grad():
+        before = fused_rdb.launches
         assert fused_rdb(x.clone().requires_grad_(), packed).shape == x.shape
+        assert fused_rdb.launches == before + 1
         assert model(torch.rand(1, 16, 16, 3, device=cuda)).shape == (1, 64, 64, 3)
 
 
@@ -351,11 +336,12 @@ def test_conv3x3_one_hot_probes_are_exact(cuda, shape, cout, tile, tap):
     assert torch.equal(out, conv3x3_plain(x, w))
 
 
-def test_conv3x3_dots_has_the_output_shape(cuda):
-    x, w = _conv_operands(cuda, (2, 16, 32, 32), 96)
-    out = conv3x3(x, w, tile=8, mode="dots")  # values undefined: the window is not staged
+@pytest.mark.parametrize("shape,cout,tile", CONV_SHAPES, ids=CONV_IDS)
+def test_conv3x3_dots_has_the_output_shape(cuda, shape, cout, tile):
+    x, w = _conv_operands(cuda, shape, cout)
+    out = conv3x3(x, w, tile=tile, mode="dots")  # values undefined: the window is not staged
     torch.cuda.synchronize()
-    assert out.shape == (2, 16, 32, 96) and out.dtype == torch.bfloat16
+    assert out.shape == (*shape[:3], cout) and out.dtype == torch.bfloat16
 
 
 # between them these take every width the kernels are built for
@@ -381,8 +367,10 @@ def test_mm_grid_matches_plain(cuda, m, k, n):
 
 # mm_grid's edges: ragged k (a chunk of 32 past one of 64) with m = 64, one
 # chunk shorter than a box (k = 16), n = 32 (a 64-wide block half past n),
-# n = 160 (192-wide), n = 320 (two 256-wide column blocks, the second past n)
-MM_GRID_RAGGED = [(64, 96, 192), (64, 16, 64), (128, 64, 32), (128, 96, 160), (128, 128, 320)]
+# n = 160 (192-wide), n = 320 (two 256-wide column blocks, the second past n);
+# then the experiment tool's other shapes and (256, 96, 160)
+MM_GRID_RAGGED = [(64, 96, 192), (64, 16, 64), (128, 64, 32), (128, 96, 160), (128, 128, 320),
+                  (8192, 96, 160), (8192, 512, 512), (2048, 192, 192), (256, 96, 160)]
 
 
 @pytest.mark.parametrize("m,k,n", MM_GRID_RAGGED)
@@ -433,8 +421,8 @@ def test_mm_resident_matches_plain(cuda, m, k, n, reps):
 
 
 # mm_resident's shapes beyond MM_SHAPES: the experiment tool's others and
-# chip_smoke.py's ragged ones (k = 96 and 64, padded to whole boxes; n = 32,
-# 160, a block past n)
+# ragged ones (k = 96 and 64, padded to whole boxes; n = 32, 160, a block
+# past n)
 MM_RESIDENT_RAGGED = [(8192, 96, 160), (8192, 512, 512), (2048, 192, 192), (64, 96, 192),
                       (128, 64, 32), (256, 96, 160)]
 
@@ -533,16 +521,24 @@ def _lr_agreement(ours, ref):
     return equal, (float("inf") if mse == 0 else 10 * math.log10(1 / mse))
 
 
-@pytest.mark.parametrize("up1,up2", [(False, False), (True, True)])
-def test_degrade_on_the_card_equals_the_cpu_on_the_same_draws(cuda, default_tf32, up1, up2):
+# (hr, crop, batch, up1, up2): small, then the CLI's geometry and batch at
+# each (up1, up2), each of which picks its own canvases
+DEGRADE_CASES = [(160, 128, 4, False, False), (160, 128, 4, True, True),
+                 *((400, 256, 8, up1, up2) for up1 in (False, True) for up2 in (False, True))]
+
+
+@pytest.mark.parametrize("hr_size,crop,batch,up1,up2", DEGRADE_CASES,
+                         ids=[f"hr{c[0]}_b{c[2]}_up{c[3]:d}{c[4]:d}" for c in DEGRADE_CASES])
+def test_degrade_on_the_card_equals_the_cpu_on_the_same_draws(cuda, default_tf32, hr_size, crop,
+                                                              batch, up1, up2):
     from real_esrgan_tpu_torch import configuration as cfg
     from real_esrgan_tpu_torch.ops.degradation import apply_degradation, draw_degradation
 
-    geo, kcfg, dcfg = cfg.PipelineGeometry(160, 128, 4), cfg.KernelSynthesisConfig(), \
+    geo, kcfg, dcfg = cfg.PipelineGeometry(hr_size, crop, 4), cfg.KernelSynthesisConfig(), \
         cfg.DegradationConfig()
     gen = torch.Generator().manual_seed(7)
-    hr = (torch.rand(4, 160, 160, 3, generator=gen) * 255).to(torch.uint8)
-    draws = draw_degradation(gen, 4, geo, kcfg, dcfg, up1, up2, augment=True)
+    hr = (torch.rand(batch, hr_size, hr_size, 3, generator=gen) * 255).to(torch.uint8)
+    draws = draw_degradation(gen, batch, geo, kcfg, dcfg, up1, up2, augment=True)
     lr_cpu, hr_cpu = apply_degradation(hr, draws, geo, kcfg, dcfg, up1, up2)
     lr, hr_card = apply_degradation(hr.to(cuda), draws.to(cuda), geo, kcfg, dcfg, up1, up2)
     assert torch.equal(hr_card.cpu(), hr_cpu)
@@ -589,33 +585,69 @@ def test_make_degraded_eval_runs_on_cuda_and_raises_without_it(tmp_path):
     assert read_png(str(tmp_path / "out" / "LRx4" / names[0])).shape == (8, 8, 3)
 
 
-def test_make_degraded_eval_on_the_card_equals_the_cpu(cuda, tmp_path):
-    """The eval set does not depend on the device: --seed 0 on the card and
-    with --cpu write identical HR files and at least 99% equal 8-bit LR
-    values (the card equals the CPU on the same draws; 1% leaves room for a
-    rounding that lands the other way and nothing else)."""
-    import numpy as np
+def _random_gt(gt):
+    from real_esrgan_tpu_torch.utils.imgio import save_image_rgb
 
-    from real_esrgan_tpu_torch.scripts import make_degraded_eval
-    from real_esrgan_tpu_torch.utils.imgio import read_png, save_image_rgb
+    save_image_rgb(str(gt / "a.png"), np.random.default_rng(1).random((320, 480, 3)))
 
+
+def _tree_tiles(gt):
+    """The 2 x 5 grid of 400-pixel tiles of the 1024 x 2048 test image."""
+    from real_esrgan_tpu_torch.utils.imgio import write_png
+
+    tree_sr = read_png(TREE_SR)
+    for i, (y, x) in enumerate((y, x) for y in range(0, 1024 - 399, 400)
+                               for x in range(0, 2048 - 399, 400)):
+        write_png(str(gt / f"tree_{i:02d}.png"), tree_sr[y:y + 400, x:x + 400])
+
+
+# (GT writer, flags, crop size, pairs): a random image at hr 160 in batches
+# of 4, and the test image's tiles at the CLI's defaults (hr 400 -> crop 256,
+# batches of 8, the second padded)
+DEGRADED_EVAL_CASES = {
+    "random_hr160": (_random_gt, ["--hr-size", "160", "--crop-size", "128", "--batch-size", "4"],
+                     128, 6),
+    "tree_tiles_cli_defaults": (_tree_tiles, [], 256, 10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DEGRADED_EVAL_CASES))
+def test_make_degraded_eval_on_the_card_equals_the_cpu(cuda, default_tf32, tmp_path, case):
+    """The CLI on the card with --seed 0 (PyTorch's default TF32 flags):
+    aligned pairs, each LR more than 2 levels from a clean area downscale of
+    its HR, scored by eval_pair (--bicubic and the committed weights).  The
+    eval set does not depend on the device: with --cpu it writes identical
+    HR files and at least 99% equal 8-bit LR values (the card equals the CPU
+    on the same draws; 1% leaves room for a rounding that lands the other
+    way and nothing else)."""
+    from real_esrgan_tpu_torch.scripts import eval_pair, make_degraded_eval
+
+    write_gt, flags, crop, pairs = DEGRADED_EVAL_CASES[case]
     gt = tmp_path / "gt"
     gt.mkdir()
-    save_image_rgb(str(gt / "a.png"), np.random.default_rng(1).random((320, 480, 3)))
-    args = ["--gt-dir", str(gt), "--seed", "0", "--hr-size", "160", "--crop-size", "128",
-            "--batch-size", "4"]
+    write_gt(gt)
+    args = ["--gt-dir", str(gt), "--seed", "0", *flags]
     make_degraded_eval.main(args + ["--output-dir", str(tmp_path / "card")])
     make_degraded_eval.main(args + ["--output-dir", str(tmp_path / "cpu"), "--cpu"])
     names = sorted(os.listdir(tmp_path / "card" / "GTmod4"))
-    assert len(names) == 6 and names == sorted(os.listdir(tmp_path / "cpu" / "GTmod4"))
-    equal, total = 0, 0
+    assert len(names) == pairs and names == sorted(os.listdir(tmp_path / "cpu" / "GTmod4"))
+    assert names == sorted(os.listdir(tmp_path / "card" / "LRx4"))
+    side, equal, total = crop // 4, 0, 0
     for name in names:
         assert (tmp_path / "card" / "GTmod4" / name).read_bytes() == \
             (tmp_path / "cpu" / "GTmod4" / name).read_bytes()
         a = read_png(str(tmp_path / "card" / "LRx4" / name))
         b = read_png(str(tmp_path / "cpu" / "LRx4" / name))
+        hr = read_png(str(tmp_path / "card" / "GTmod4" / name))
+        assert a.shape == (side, side, 3) and hr.shape == (crop, crop, 3), name
+        clean = hr.astype(np.float64).reshape(side, 4, side, 4, 3).mean(axis=(1, 3))
+        assert np.abs(a.astype(np.float64) - clean).max() > 2, name
         equal, total = equal + int((a == b).sum()), total + a.size
     assert equal / total >= 0.99, equal / total
+    for flag in (["--bicubic"], ["--weights", WEIGHTS]):
+        summary = eval_pair.main([*flag, "--lr-dir", str(tmp_path / "card" / "LRx4"),
+                                  "--hr-dir", str(tmp_path / "card" / "GTmod4")])
+        assert summary["n"] == pairs and math.isfinite(summary["psnr_mean"]), (flag, summary)
 
 
 def test_one_bf16_training_step_on_the_card_launches_no_rdb_kernel(cuda):
@@ -653,8 +685,7 @@ def test_validation_on_the_card_launches_the_rdb_kernel_69_times_an_image(cuda):
     from real_esrgan_tpu_torch.train import esrnet
     from real_esrgan_tpu_torch.train_realesrnet import validate
 
-    ema = {k: v.to(cuda) for k, v in load_generator_params(
-        os.path.join(ROOT, "assets", "inenv10_esrnet_ema.npz")).items()}
+    ema = {k: v.to(cuda) for k, v in load_generator_params(WEIGHTS).items()}
     eval_model = esrnet.build_generator(ModelConfig(), TrainConfig(), cuda, training=False)
     rng = np.random.default_rng(0)
     images = [{"lr": rng.random((64, 64, 3)).astype(np.float32)},
@@ -668,14 +699,15 @@ def test_validation_on_the_card_launches_the_rdb_kernel_69_times_an_image(cuda):
 
 # ---- the stage-2 trainer: card against CPU --------------------------------
 
-def _gan_update(device, batch, seed=5):
-    """One f32 G+D update (G 2 RRDBs at 64 channels, D at 64, VGG to conv2_2)
-    on ``device`` from weights drawn on the CPU: the metrics and D's state."""
+def _gan_update(device, batch, vgg_nodes, content_weights, seed=5):
+    """One f32 G+D update (G 2 RRDBs at 64 channels, D at 64, VGG to the
+    last of ``vgg_nodes``) on ``device`` from weights drawn on the CPU: the
+    metrics and D's state."""
     from real_esrgan_tpu_torch.configuration import DegradationConfig, GanTrainConfig, ModelConfig
     from real_esrgan_tpu_torch.train import esrgan
 
-    cfg = GanTrainConfig(use_bfloat16=False, remat_rrdb=False, seed=seed,
-                         vgg_nodes=("conv1_2", "conv2_2"), content_weights=(0.1, 1.0))
+    cfg = GanTrainConfig(use_bfloat16=False, remat_rrdb=False, seed=seed, vgg_nodes=vgg_nodes,
+                         content_weights=content_weights)
     generator, discriminator, vgg = esrgan.build_models(ModelConfig(num_rrdb=2), cfg, device)
     g_tx, d_tx = esrgan.build_optimizers(cfg, 10)
     step = esrgan.make_gan_train_step(generator, discriminator, vgg, g_tx, d_tx, None, None,
@@ -686,14 +718,19 @@ def _gan_update(device, batch, seed=5):
                                                        state.d_stats.items()}
 
 
-def test_one_f32_gan_update_on_the_card_equals_the_cpu(cuda):
+@pytest.mark.parametrize("vgg", ["conv2_2", "conv5_4"])
+def test_one_f32_gan_update_on_the_card_equals_the_cpu(cuda, vgg):
     """Loss terms, probabilities, both grad norms and D's sigmas within 1e-4
-    relative (TF32 off: the sums' order is all that differs)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+    relative (TF32 off: the sums' order is all that differs), with VGG19 to
+    conv2_2 and to conv5_4 (the trainer's default content loss)."""
+    from real_esrgan_tpu_torch.configuration import GanTrainConfig
+
+    content = {"conv2_2": (("conv1_2", "conv2_2"), (0.1, 1.0)),
+               "conv5_4": (GanTrainConfig.vgg_nodes, GanTrainConfig.content_weights)}[vgg]
     g = torch.Generator().manual_seed(6)
     batch = (torch.rand(2, 32, 32, 3, generator=g), torch.rand(2, 128, 128, 3, generator=g))
-    card, card_stats = _gan_update(cuda, batch)
-    cpu, cpu_stats = _gan_update(torch.device("cpu"), batch)
+    card, card_stats = _gan_update(cuda, batch, *content)
+    cpu, cpu_stats = _gan_update(torch.device("cpu"), batch, *content)
     for k in ("pixel", "content", "adversarial", "g_loss", "d_loss", "d_hr_prob", "d_sr_prob",
               "g_grad_norm", "d_grad_norm"):
         assert abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]), (k, card[k], cpu[k])
@@ -803,18 +840,53 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-12)
 
 
-def test_a_one_rank_nccl_group_runs_its_collective_and_changes_no_step(cuda, monkeypatch):
+def _small_steps(device) -> dict:
+    """``dp_check``'s small preset: three stage-1 steps."""
+    from real_esrgan_tpu_torch.tools import dp_check
+
+    return dp_check.run_cases(["esrnet_step"], "small", device, "")["esrnet_step"]
+
+
+def _full_width_steps(device) -> dict:
+    """Two stage-1 steps at full width (23 RRDBs, 64 channels, bf16, remat)
+    from seeded weights on one synthetic batch of 48 at hr 400."""
+    from real_esrgan_tpu_torch import configuration as cfg
+    from real_esrgan_tpu_torch.train import esrnet
+    from real_esrgan_tpu_torch.train_realesrnet import SyntheticHRDataset
+
+    data = SyntheticHRDataset(400, length=48, seed=0)
+    hr = torch.from_numpy(np.stack([data.load(i, None) for i in range(48)])).to(device)
+    train = cfg.TrainConfig()
+    model = esrnet.build_generator(cfg.ModelConfig(), train, device,
+                                   generator=torch.Generator().manual_seed(0))
+    opt = esrnet.build_optimizer(train, 1000)
+    step = esrnet.make_train_step(
+        model, opt, cfg.PipelineGeometry(400, 256, 4), cfg.KernelSynthesisConfig(),
+        cfg.DegradationConfig(), train.ema_decay, seed=train.seed,
+        reject_limit=train.grad_reject_limit, rollback_after=train.rollback_after,
+        reject_mult=train.grad_reject_mult, clamp_mode=train.train_clamp)
+    state, losses = esrnet.init_state(model, opt), []
+    for flags in ((False, False), (True, True)):
+        state, metrics = step(state, hr, *flags)
+        losses.append(float(metrics["loss"]))
+    return {"metrics": losses, "params": state.params, "ema": state.ema_params}
+
+
+@pytest.mark.parametrize("steps", [_small_steps, _full_width_steps], ids=["small", "full_width"])
+def test_a_one_rank_nccl_group_runs_its_collective_and_changes_no_step(cuda, monkeypatch, steps):
     """A one-rank NCCL group joined from JAX's launch names: a forced
-    ``all_reduce_mean`` runs through NCCL and returns its input's bits, and
-    three stage-1 steps (``dp_check``'s small preset) are the same bits as
-    with no group (cuDNN held deterministic for both)."""
+    ``all_reduce_mean`` runs through NCCL and returns its input's bits, also
+    on the full-width generator's gradients (16.7 M values in some 700
+    tensors); and stage-1 steps are the same bits as with no group (cuDNN
+    held deterministic for both)."""
     import torch.distributed as dist
 
     from real_esrgan_tpu_torch.parallel import mesh
     from real_esrgan_tpu_torch.tools import dp_check
 
     monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
-    plain = dp_check.run_cases(["esrnet_step"], "small", cuda, "")["esrnet_step"]
+    plain = steps(cuda)
+    torch.cuda.empty_cache()
     for name, value in (("COORDINATOR_ADDRESS", f"localhost:{dp_check.free_port()}"),
                         ("NUM_PROCESSES", "1"), ("PROCESS_ID", "0")):
         monkeypatch.setenv(name, value)
@@ -823,31 +895,40 @@ def test_a_one_rank_nccl_group_runs_its_collective_and_changes_no_step(cuda, mon
         grads = {"w": torch.randn(1000, device=cuda), "b": torch.randn(3, 3, device=cuda)}
         out = mesh.all_reduce_mean(grads, force=True)
         assert all(out[k] is not grads[k] and torch.equal(out[k], grads[k]) for k in grads)
-        group = dp_check.run_cases(["esrnet_step"], "small", mesh.local_device(),
-                                   "")["esrnet_step"]
+        assert dp_check.run_cases(["all_reduce"], "card", mesh.local_device(),
+                                  "")["all_reduce"]["mean_is_one"]
+        group = steps(mesh.local_device())
     assert group["metrics"] == plain["metrics"]
     for key in ("params", "ema"):
         assert all(torch.equal(group[key][k], plain[key][k]) for k in plain[key]), key
 
 
-def test_two_ranks_sharing_the_card_over_gloo_equal_one_process(cuda, tmp_path):
-    """Two ranks on one card (gloo, CUDA tensors): ``dp_check``'s small
-    stage-1 and G+D steps against the same steps in this process on the
-    whole batch: losses and grad norms within 1e-4 relative (the card
-    against the CPU's bound, TF32 off), the ranks' state the same bits."""
+# dp_check's presets and the seconds each two-rank launch may take
+DP_PRESETS = {"small": 300.0, "card": 400.0}
+DP_METRICS = ("loss", "grad_norm", "pixel", "content", "adversarial", "g_loss", "d_loss",
+              "d_hr_prob", "d_sr_prob", "g_grad_norm", "d_grad_norm", "g_rejected", "d_rejected")
+
+
+@pytest.mark.parametrize("preset", sorted(DP_PRESETS))
+def test_two_ranks_sharing_the_card_over_gloo_equal_one_process(cuda, tmp_path, preset):
+    """Two ranks on one card (gloo, CUDA tensors): ``dp_check``'s stage-1
+    and G+D steps (small; card: 2 RRDBs x 64, D 64, VGG19 to conv5_4, batch
+    48 at hr 400) against the same steps in this process on the whole
+    batch: every metric within 1e-4 relative (the card against the CPU's
+    bound, TF32 off), the ranks' state the same bits."""
     from real_esrgan_tpu_torch.tools import dp_check
 
     cases = ["esrnet_step", "gan_step"]
     runs = dp_check.launch_local(
-        ["-m", "real_esrgan_tpu_torch.tools.dp_check", "--preset", "small", "--backend", "gloo",
-         "--cases", ",".join(cases), "--out", str(tmp_path)], 2, 300.0)
+        ["-m", "real_esrgan_tpu_torch.tools.dp_check", "--preset", preset, "--backend", "gloo",
+         "--cases", ",".join(cases), "--out", str(tmp_path)], 2, DP_PRESETS[preset])
     for r, (rc, out) in enumerate(runs):
         assert rc == 0 and f"DP_CHECK_OK rank={r}" in out, out[-3000:]
     ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True) for r in range(2)]
-    single = dp_check.run_cases(cases, "small", cuda, str(tmp_path))
+    single = dp_check.run_cases(cases, preset, cuda, str(tmp_path))
     for case in cases:
         for m, ref in zip(ranks[0][case]["metrics"], single[case]["metrics"]):
-            for key in ("loss", "grad_norm", "g_loss", "d_loss", "g_grad_norm", "d_grad_norm"):
+            for key in DP_METRICS:
                 if key in ref:
                     assert _rel(m[key], ref[key]) <= 1e-4, (case, key)
         for key in ("params", "ema", "d_params", "d_stats"):
@@ -856,21 +937,48 @@ def test_two_ranks_sharing_the_card_over_gloo_equal_one_process(cuda, tmp_path):
                 assert all(torch.equal(a[k], b[k]) for k in a), (case, key)
 
 
-def test_the_stage1_cli_as_two_ranks_on_the_card_resumes_on_both(cuda, tmp_path):
-    """The tiny stage-1 CLI (tests/_torch_mp_worker.py) as two ranks on the
-    card, each in its own working directory: one epoch, then --resume auto;
-    both ranks print the resumed epoch."""
-    from real_esrgan_tpu_torch.tools.dp_check import launch_local
+# the stage-1 CLI at full width as a rank: the CLIs take no backend flag, and
+# NCCL refuses two ranks on one device
+FULL_WIDTH_CLI = """
+import sys
+from real_esrgan_tpu_torch import train_realesrnet as trainer
+from real_esrgan_tpu_torch.parallel.mesh import process_group
+with process_group("gloo"):
+    for more in ([], ["--epochs", "2", "--resume", "auto"]):
+        trainer.main(trainer.build_parser().parse_args(sys.argv[1:] + more))
+"""
+# argv, seconds, what each rank prints, g_last's (epoch, step) or None: the
+# tiny worker (tests/_torch_mp_worker.py, which checks g_last itself) and
+# the full-width CLI at batch 48, one step an epoch
+TWO_RANK_CLIS = {
+    "tiny": ([os.path.join(ROOT, "tests", "_torch_mp_worker.py"), "synthetic", "card"], 300.0,
+             ["MP_WORKER_OK rank={r}", "Training on cuda:0", "at epoch 1."], None),
+    "full_width": (["-c", FULL_WIDTH_CLI, "--synthetic", "--epochs", "1", "--batch-size", "48",
+                    "--steps-per-epoch", "1", "--no-tensorboard", "--exp-name", "ddp"], 400.0,
+                   ["rank {r} of 2", "at epoch 1.", "1 steps/epoch, 2 ranks of 24"], (2, 2)),
+}
 
-    worker = os.path.join(ROOT, "tests", "_torch_mp_worker.py")
+
+@pytest.mark.parametrize("cli", sorted(TWO_RANK_CLIS))
+def test_the_stage1_cli_as_two_ranks_on_the_card_resumes_on_both(cuda, tmp_path, cli):
+    """The stage-1 CLI as two ranks on the card, each in its own working
+    directory: one epoch, then --resume auto; both ranks print the resumed
+    epoch, and rank 1 writes no results."""
+    from real_esrgan_tpu_torch.tools.dp_check import launch_local
+    from real_esrgan_tpu_torch.train.checkpoint import load_checkpoint
+
+    argv, seconds, printed, last = TWO_RANK_CLIS[cli]
     cwds = [tmp_path / f"rank{r}" for r in range(2)]
     for cwd in cwds:
         cwd.mkdir()
-    runs = launch_local([worker, "synthetic", "card"], 2, 300.0, cwds=[str(c) for c in cwds])
+    runs = launch_local(argv, 2, seconds, cwds=[str(c) for c in cwds])
     for r, (rc, out) in enumerate(runs):
-        assert rc == 0 and f"MP_WORKER_OK rank={r}" in out, out[-3000:]
-        assert "Training on cuda:0" in out and "at epoch 1." in out
+        assert rc == 0, out[-3000:]
+        assert all(line.format(r=r) in out for line in printed), out[-3000:]
     assert not (cwds[1] / "results").exists()
+    if last is not None:
+        tree = load_checkpoint(str(cwds[0] / "results" / "ddp" / "g_last"))
+        assert (tree["epoch"], tree["step"]) == last
 
 
 def test_two_replicas_on_one_card_tile_as_one_device(cuda):

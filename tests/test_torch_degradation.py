@@ -18,8 +18,9 @@ The draw step is held to JAX's distributions on 4096 samples (KS for
 continuous values, frequencies within 4 sigma for discrete ones).
 
 ``python tests/test_torch_degradation.py`` writes the JAX golden
-``tests/data/jax_degrade_b2_hr128.npz`` that ``chip_smoke.py`` holds the
-card to; ``test_golden_regenerates_exactly`` keeps it equal to the JAX
+``tests/data/jax_degrade_b2_hr128.npz`` that the card test
+``test_torch_cuda.py::test_degrade_on_the_card_matches_the_jax_golden`` holds
+the card to; ``test_golden_regenerates_exactly`` keeps it equal to the JAX
 package.
 """
 
@@ -336,7 +337,7 @@ def test_golden_regenerates_exactly():
 
 
 def test_port_matches_the_golden_on_the_cpu():
-    """What chip_smoke.py checks on the card, here on the CPU."""
+    """What test_torch_cuda.py checks on the card, here on the CPU."""
     with np.load(GOLDEN) as g:
         draws = tdeg.draws_from_arrays({k[6:]: g[k] for k in g.files if k.startswith("draws.")})
         lr, hr = tdeg.apply_degradation(torch.from_numpy(g["hr_uint8"]), draws,

@@ -1,5 +1,6 @@
 """The port's ``tools/run_inenv10_program.sh``, the two-stage InEnv10
-program, checked without running it (``chip_smoke.py`` runs it on the card):
+program, checked without running it (the card test
+``test_torch_cuda_research.py::test_the_inenv10_program_on_the_card`` runs it):
 
 * ``bash -n`` parses it;
 * every Python command it runs is ``python -m real_esrgan_tpu_torch.<cli>``

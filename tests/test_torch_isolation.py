@@ -58,3 +58,28 @@ def test_port_and_chip_smoke_import_no_jax():
                    "utils.zstd", "utils.ocdbt", "utils.orbax_read", "utils.native_build",
                    "scripts.export_torch"):
         assert f"real_esrgan_tpu_torch.{module}" in result["imported"]
+
+
+CARD_PROBE = """
+import glob, importlib, json, os, sys
+sys.path.insert(0, "tests")
+names = sorted(os.path.basename(p)[:-3] for p in glob.glob("tests/test_torch_cuda*.py"))
+names += ["test_torch_tail_epilogue", "test_torch_swinir", "test_torch_layer_norm"]
+for name in names:
+    importlib.import_module(name)
+held = sorted(m for m in sys.modules if m in ("jax", "jaxlib", "real_esrgan_tpu")
+              or m.startswith(("jax.", "jaxlib.", "real_esrgan_tpu.")))
+print(json.dumps({"imported": names, "forbidden": held}))
+"""
+
+
+def test_the_card_test_files_import_no_jax():
+    """The card tests run with ``--noconftest`` on a machine without JAX, so
+    no card test file imports it, nor the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    run = subprocess.run([sys.executable, "-c", CARD_PROBE], cwd=ROOT, env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    result = json.loads(run.stdout.strip().splitlines()[-1])
+    assert result["forbidden"] == []
+    assert {"test_torch_cuda", "test_torch_cuda_eval", "test_torch_cuda_orbax",
+            "test_torch_cuda_train", "test_torch_cuda_research"} <= set(result["imported"])

@@ -23,6 +23,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from _torch_card import cuda  # noqa: F401  (a fixture)
 from real_esrgan_tpu_torch.models.swinir import LN_EPS, LayerNorm, SwinIR
 from real_esrgan_tpu_torch.ops import layer_norm as ln
 
@@ -123,13 +124,6 @@ def test_the_module_on_the_cpu_runs_the_plain_version(dtype):
 
 
 # ------------------------------------------------------------------ card ---
-
-@pytest.fixture()
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
 
 F32_BOUND = 1e-5
 

@@ -3,8 +3,8 @@ csrc/hopper.cuh), mm_grid and mm_resident, on the CPU.
 
 The models, the executable spec of what each kernel computes where:
 
-* ``mm_grid_plan`` at every shape the experiment tool and chip_smoke.py give
-  the kernel and at the ragged edges: the block width and grid, the shared
+* ``mm_grid_plan`` at every shape the experiment tool and the card tests
+  (test_torch_cuda.py) give the kernel and at the ragged edges: the block width and grid, the shared
   memory (alignment, stages, mbarriers) within a block's limit, and the
   bytes each stage's full mbarrier expects (whole TMA boxes, zero fill
   included).  On the card the wrapper holds the built kernel to this plan.
@@ -40,7 +40,7 @@ from real_esrgan_tpu_torch.tools import conv_exp
 torch.set_num_threads(2)
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
-# chip_smoke.py's extra shapes and the ragged edges: ragged k (96) with
+# the card tests' extra shapes and the ragged edges: ragged k (96) with
 # m = 64, k shorter than a box, n = 32, 160 (192-wide) and 320 and 512 (two
 # column blocks)
 EXTRA_SHAPES = [(256, 96, 160), (128, 64, 64), (64, 96, 192), (64, 16, 64), (128, 64, 32),
@@ -311,8 +311,8 @@ def test_chunk_model_matches_mm_grid_plain(m, k, n):
 
 # ---- mm_resident --------------------------------------------------------
 
-# what the kernel must run: the experiment tool's shapes and chip_smoke.py's
-# ragged ones
+# what the kernel must run: the experiment tool's shapes and the card
+# tests' ragged ones
 RESIDENT_SHAPES = list(conv_exp.MM_SHAPES) + [(64, 96, 192), (128, 64, 32), (128, 96, 160),
                                               (256, 96, 160), (128, 64, 64)]
 # a thread of a 256-thread block may have 255 registers; its operands leave

@@ -180,7 +180,7 @@ def test_stage2_resumes_jax_state_exactly_and_steps_like_jax(gan_runs):
 
 
 def test_the_committed_fixtures_resume(tmp_path):
-    """The fixtures chip_smoke.py resumes on the card, here on the CPU:
+    """The fixtures test_torch_cuda_orbax.py resumes on the card, here on the CPU:
     step, count and lr_scale carry on from the JAX values."""
     cfg = TrainConfig(**fixtures.ESRNET_TRAIN)
     model = esrnet.build_generator(ModelConfig(**fixtures.NARROW_MODEL), cfg)

@@ -35,6 +35,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_card import cuda  # noqa: F401  (a fixture)
 from benchmark.harness import GapRatio
 from benchmark.reference import swinir as reference
 from real_esrgan_tpu_torch import inference
@@ -313,14 +314,6 @@ def test_an_unknown_arch_is_refused():
 
 
 # ------------------------------------------------------------------ card ---
-
-@pytest.fixture()
-def cuda(monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    return torch.device("cuda")
-
 
 def _attn_inputs(shape, heads, dtype, device, seed=0):
     """qkv whose logits have a std of about 2 at head dim 30, and an N(0, 1)

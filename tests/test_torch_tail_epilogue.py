@@ -21,6 +21,7 @@ equals the same module's under autograd (the plain ops) bit for bit, with
 import pytest
 import torch
 
+from _torch_card import cuda  # noqa: F401  (a fixture)
 from real_esrgan_tpu_torch.models import Generator
 from real_esrgan_tpu_torch.ops import tail_epilogue
 from real_esrgan_tpu_torch.ops.tail_epilogue import MAX_ROW_ELEMENTS, bias_lrelu, bias_lrelu_plain
@@ -140,14 +141,6 @@ def test_the_generator_on_the_cpu_runs_conv3_as_a_module_and_no_kernel():
     assert seen == [True] and bias_lrelu.launches == before
 
 
-@pytest.fixture()
-def cuda(monkeypatch):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
-    return torch.device("cuda")
-
-
 # (n, c, h, w, shuffle): the batch cell's three launches (upconv1, upconv2,
 # conv3 of 16 x 256^2 in), batch 1 with odd sides, channel runs of 16, 12
 # and 6 (12 x 2 and 6 x 4 bytes take the one-element path)
@@ -225,7 +218,9 @@ def test_a_batch_of_one_from_numpy_takes_the_kernel(cuda):
     """``SRPipeline.upscale`` and the trainer's validation make a batch of
     one with NumPy's ``[None]``, whose batch stride is 0, so the first
     upconv's conv returns NCHW: the model hands the kernel channels_last and
-    keeps the plain ops' bits."""
+    keeps the plain ops' bits.  The kernel has no backward: an input or a
+    bias that requires grad raises with autograd on and launches once under
+    ``no_grad``."""
     import numpy as np
 
     model = Generator(num_rrdb=1, dtype=torch.bfloat16, plain_rdb=True, device=cuda)
@@ -239,6 +234,12 @@ def test_a_batch_of_one_from_numpy_takes_the_kernel(cuda):
     with torch.enable_grad():
         _assert_same_bits(fused, model(x).detach())
     y, bias = _inputs(1, 16, 4, 6, True, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        bias_lrelu(y.clone().requires_grad_(), bias, True)
+    before = bias_lrelu.launches
+    with torch.no_grad():
+        bias_lrelu(y.clone().requires_grad_(), bias, True)
+    assert bias_lrelu.launches == before + 1
     with pytest.raises(RuntimeError, match="no backward"):
         bias_lrelu(y, bias.requires_grad_(), True)
 
